@@ -1,12 +1,12 @@
-"""Burgers initial-data inversion benchmark: fused-Pallas pCN vs the
+"""Burgers initial-data inversion benchmark: fused-engine pCN vs the
 reference-equivalent NumPy oracle (the reference's headline problem class —
 conservation-law inversion with a Godunov FV solver, SURVEY.md §3.4).
 
 Same methodology as bench.py: identical algorithm (pCN, same β) and data on
-both sides; ESS/step from a TPU-recorded series; ESS/sec = ESS/step ×
+both sides; ESS/step from a GPU-recorded series; ESS/sec = ESS/step ×
 steps/sec each side.
 
-Run on TPU: python -m benchmarks.burgers_bench
+Run on GPU: python -m benchmarks.burgers_bench
 """
 
 from __future__ import annotations
@@ -73,8 +73,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.ipx_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from ip_mcmc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache(min_compile_time_s=1.0)
 
     from ip_mcmc_tpu import diagnostics, distributions
     from ip_mcmc_tpu.models import burgers
@@ -130,13 +131,13 @@ def main():
     t0 = time.time()
     out, acc = fused(pos, 2, N_TIME)
     jax.block_until_ready(out)
-    tpu_s = time.time() - t0
-    tpu_rate = N_CHAINS * N_TIME / tpu_s
-    tpu_ess = ess_per_step_chain * tpu_rate
+    dev_s = time.time() - t0
+    dev_rate = N_CHAINS * N_TIME / dev_s
+    dev_ess = ess_per_step_chain * dev_rate
     log(
-        f"TPU fused: {tpu_rate:,.0f} steps/s ({tpu_s:.3f}s), "
+        f"GPU fused: {dev_rate:,.0f} steps/s ({dev_s:.3f}s), "
         f"accept={float(np.asarray(acc).mean()):.3f}, min ESS={min_ess:,.0f} "
-        f"-> {tpu_ess:,.1f} ESS/s"
+        f"-> {dev_ess:,.1f} ESS/s"
     )
 
     oracle = OracleBurgersPCN(aux)
@@ -151,8 +152,8 @@ def main():
         f"oracle: {o_rate:,.1f} steps/s (accept={o_acc:.2f}) -> {o_ess:.4f} ESS/s"
     )
     print(
-        f"burgers_pcn: TPU {tpu_ess:,.1f} ESS/s vs oracle {o_ess:.4f} ESS/s "
-        f"= {tpu_ess / o_ess:,.0f}x"
+        f"burgers_pcn: GPU {dev_ess:,.1f} ESS/s vs oracle {o_ess:.4f} ESS/s "
+        f"= {dev_ess / o_ess:,.0f}x"
     )
 
 

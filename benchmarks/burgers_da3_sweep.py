@@ -1,9 +1,8 @@
 """Round-4 3-level DA sweep: middle-level placement and (k1, k2) frontier.
 
-Round-3 measured DA3 (k1=8, k2=4, 64c inner + 128c middle) at 2.63x the
-cold fused kernel's honest ESS/s — the best Burgers row — with the trend
-still RISING in k2 ((8,2) 2.14x -> (4,4) 2.19x -> (8,4) 2.63x). The round-3
-VERDICT's named lever is middle-level placement: the middle correction
+DA3 (k1=8, k2=4, 64c inner + 128c middle) was the best Burgers row on the
+earlier hardware, with the trend still rising in k2 (ESS/s on the GPU: not
+measured). The named lever is middle-level placement: the middle correction
 costs mid_cost_ratio per outer-middle step, so a cheaper-but-still-accurate
 96c middle (cost 1/5.3, discrepancy ~2x noise vs 128c's below-noise 1/2.96)
 trades correction acceptance for throughput. This sweep covers:
@@ -44,8 +43,9 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.ipx_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from ip_mcmc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache(min_compile_time_s=0.5)
 
     from ip_mcmc_tpu import configs, ops
     from ip_mcmc_tpu.models import burgers

@@ -1,9 +1,8 @@
 """Round-5 (k, β) re-sweep of the DA optima under the NEW cost structure.
 
-The round-4 sweeps fixed (k, β) under the Jacobi solver pair. The round-5
-MXU-preconditioned solvers changed the inner/outer cost ratio (the
-surrogate step got ~2× cheaper relative to the exact correction on 16²,
-~4× on 64²), which shifts the optimal subchain length k upward: cheaper
+The round-4 sweeps fixed (k, β) under the Jacobi solver pair. The
+spectrally preconditioned solvers changed the inner/outer cost ratio,
+which shifts the optimal subchain length k upward: cheaper
 inner steps mean the chain can afford more decorrelation per exact
 correction before the outer-acceptance decay bites.
 
@@ -12,8 +11,7 @@ Usage:
   python -m benchmarks.da_ksweep_r5 darcy64 32,0.4 48,0.4 64,0.45 ...
 
 Appends rows to benchmarks/da_ksweep_r5_<problem>.json (chunk-friendly:
-remote Mosaic compiles are ~60 s per program and each (k, thin) pair is
-its own program).
+each (k, thin) pair is its own program and compile).
 """
 
 from __future__ import annotations
@@ -33,8 +31,9 @@ def log(*a):
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.ipx_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from ip_mcmc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache(min_compile_time_s=1.0)
 
     import jax.numpy as jnp
 

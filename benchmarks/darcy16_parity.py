@@ -1,8 +1,7 @@
 """Parity gates behind the round-3 darcy16 preconditioner swap
 (dense Kronecker DST-6  →  truncated-DST, 4 warm iters, K=64 modes).
 
-Two checks on the real chip, complementing the throughput rows in
-``darcy16_precond.py``:
+Two checks on the device:
 
 1. **Warm-path phi error** — the operative bias entering the MH ratio
    during a warm run is the phi error when the solve starts from the
@@ -15,16 +14,9 @@ Two checks on the real chip, complementing the throughput rows in
    data and seeds, 4096 chains, 400 recorded post-burn-in steps;
    per-coordinate |Δmean| / |Δstd| of each candidate vs the shipping
    dense kernel, compared against the dense kernel's own seed-to-seed
-   MC spread. Measured (2026-08-20, one v5e chip):
+   MC spread. On the GPU: not measured.
 
-       shipping seed-to-seed |dmean|: max 0.0417, median 0.0172
-       dst_trunc-6 K=64:  |dmean| max 0.0015  |dstd| max 0.0014
-       dst_trunc-4 K=64:  |dmean| max 0.0054  |dstd| max 0.0063
-
-   Both candidates sit ~8–28x INSIDE the MC error bar; the swap to
-   dst_trunc-4 K=64 (1.57x wall-clock) is statistically invisible.
-
-Run: ``python -m benchmarks.darcy16_parity`` (takes ~5 min on the chip).
+Run: ``python -m benchmarks.darcy16_parity``.
 """
 
 import jax
@@ -33,8 +25,9 @@ import numpy as np
 
 
 def main():
-    jax.config.update("jax_compilation_cache_dir", "/root/.ipx_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from ip_mcmc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache(min_compile_time_s=1.0)
 
     from benchmarks.oracle_darcy import OracleDarcyPCN
     from ip_mcmc_tpu import distributions

@@ -1,33 +1,15 @@
 """Gated preconditioner sweep for the darcy32/darcy64 shipping configs —
 the round-3 darcy16 methodology (throughput + acceptance + warm-path phi
-error + posterior-moment parity, all on the real chip) applied to the
+error + posterior-moment parity, all on the device) applied to the
 larger grids.
 
-Measured 2026-08-20 (one v5e chip, 3-rep min of 3 chained 400-step
-launches, transfer barriers):
-
-    n=32, 4096 chains, block 128, beta=0.08:
-      dst_trunc-6 K=128 (r2 ship) 7,578,715 steps/s  acc 0.7223  (baseline)
-      dst_trunc-4 K=128 (NEW)     9,912,296 steps/s  acc 0.7223  |dm| 0.0097
-      dst_trunc-4 K=64           10,313,936 steps/s  acc 0.7221  |dm| 0.0099
-      dst_trunc-6 K=64            7,903,547 steps/s  acc 0.7224  |dm| 0.0071
-
-    n=64, 2048 chains, block 128, beta=0.06:
-      dst_trunc-8 K=256 (r2 ship) 1,423,987 steps/s  acc 0.7629  (baseline)
-      dst_trunc-4 K=256 (NEW)     2,348,266 steps/s  acc 0.7634  |dm| 0.0116
-      dst_trunc-4 K=128           2,687,315 steps/s  acc 0.7625  |dm| 0.0169
-      dst_trunc-6 K=128           2,028,749 steps/s  acc 0.7631  |dm| 0.0119
-
 Warm-path phi error from a converged start is exactly 0 for EVERY variant
-(the converged solve is a fixed point regardless of iteration count), and
-the moment deltas sit inside the MC error of the window (the n=16 analog
-measured seed-to-seed MC spread 0.0417 at MORE draws). Swaps shipped:
-darcy32_pcn_warm -> dst_trunc-4 K=128 (+31%); darcy64_pcn_warm ->
-dst_trunc-4 K=256 (+65%, same mode count as r2, iterations only; K=128's
-further +15% is documented in the config docstring).
+(the converged solve is a fixed point regardless of iteration count).
+Shipped: darcy32_pcn_warm -> dst_trunc-4 K=128; darcy64_pcn_warm ->
+dst_trunc-4 K=256. Throughput on the GPU: not measured.
 
 Run: ``python -m benchmarks.darcy3264_precond`` (~25 min: the n=64
-programs have long remote Mosaic compiles on first run).
+programs have long compiles on first run).
 """
 
 import argparse
@@ -113,8 +95,9 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.ipx_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from ip_mcmc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache(min_compile_time_s=1.0)
 
     rows = sweep(32, 8, 0.08, 128, [
         ("dst_trunc-6 K=128",

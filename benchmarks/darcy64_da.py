@@ -1,8 +1,8 @@
 """Round-4 frontier: 2-level delayed acceptance on the LARGE-GRID Darcy
 config (64² cells, 144-dim KL — `darcy64_pcn_warm`'s problem).
 
-The darcy16 result (benchmarks/darcy_da_fused.py: 8.75× the warm kernel,
-exact posterior) should transfer here with a LARGER cost ratio: the fine
+The darcy16 result (benchmarks/darcy_da_fused.py: DA beats the warm
+kernel, exact posterior) should transfer here with a LARGER cost ratio: the fine
 model is a 4096-cell dst_trunc-PCG solve, while a calibrated 32²-grid
 surrogate costs ~1/5 per stencil pass and a 16²-grid one ~1/20. Rows:
 
@@ -10,9 +10,8 @@ surrogate costs ~1/5 per stencil pass and a 16²-grid one ~1/20. Rows:
   - fused 2-level DA: calibrated {32², 16²} surrogate × (k, β)
 
 All DA rows sample the exact cold dst_trunc-24 posterior. ESS protocol
-identical to benchmarks/burgers_da.py. VMEM pressure: the DA kernel holds
-BOTH grids' solves per block — block_chains at the Pallas lane minimum
-(128; smaller blocks fail mosaic's (8, 128) tiling requirement).
+identical to benchmarks/burgers_da.py. block_chains 128 (the block fixes
+the RNG streams, not the schedule).
 
 Usage: python -m benchmarks.darcy64_da [--quick] [--out f]
 """
@@ -74,8 +73,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.ipx_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from ip_mcmc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache(min_compile_time_s=0.5)
 
     from ip_mcmc_tpu import configs, ops
     from ip_mcmc_tpu.models import darcy

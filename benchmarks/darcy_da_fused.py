@@ -1,8 +1,8 @@
 """Round-4 frontier probe: does the Burgers DA3 win transfer to the
 HEADLINE Darcy problem?
 
-The shipping darcy16 headline is the fused WARM pCN kernel (dst_trunc-4,
-~28.6M steps/s, ~38.8k ESS/s) — but its chain is weakly non-Markov through
+The warm fused pCN kernel (dst_trunc-4) is fast, but its chain is weakly
+non-Markov through
 the carried CG solution, and its per-recorded-sample ESS is ~1e-3 (beta
 0.08, heavily autocorrelated). The Burgers round-4 result says: a cheap
 calibrated coarse-GRID surrogate subchain + exact correction can multiply
@@ -87,8 +87,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.ipx_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from ip_mcmc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache(min_compile_time_s=0.5)
 
     from ip_mcmc_tpu import configs, ops
     from ip_mcmc_tpu.models import darcy

@@ -7,7 +7,7 @@ Measures, on one chip:
 - n = 64: warm dst_trunc-8 — the first FUSED darcy64 number (round 1 had
   scan-path only).
 
-Run on TPU:  python -m benchmarks.darcy_scale [--quick]
+Run on GPU:  python -m benchmarks.darcy_scale [--quick]
 Writes benchmarks/darcy_scale.json; prints one JSON line per row.
 """
 
@@ -55,8 +55,7 @@ def _bench_warm(label, n_grid, n_modes, misfit_kw, beta, n_chains, block,
 
     # compile at the TIMED n_steps: the step count is a static constant of
     # the fused program, so warming at a different n_steps leaves the timed
-    # call paying a full recompile (~20 s — it swamped the round-2 first-cut
-    # darcy64 number, 74K steps/s reported vs ~2M steady-state)
+    # call paying a full recompile that would swamp the rate
     f, a = run(n_steps)
     jax.block_until_ready(f)
     t0 = time.perf_counter()
@@ -96,8 +95,9 @@ def main(argv=None):
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.ipx_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from ip_mcmc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache(min_compile_time_s=1.0)
 
     steps32 = 500 if args.quick else 3000
     steps64 = 200 if args.quick else 1000

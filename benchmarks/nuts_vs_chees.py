@@ -3,7 +3,7 @@
 Round-1 VERDICT item 8: the package documents NUTS as fixed-budget with
 masked wasted work (kernels/nuts.py:18-21) and recommends ChEES-HMC as the
 gradient-based default — this harness produces the measurement backing that
-claim, published in BASELINE.md.
+claim.
 
 Methodology (honest gradient accounting, SURVEY.md §7.3 item 6 analog):
 - Same Lotka-Volterra posterior for both (configs._lv_problem is
@@ -24,7 +24,7 @@ Methodology (honest gradient accounting, SURVEY.md §7.3 item 6 analog):
     the vmap lockstep penalty: every chain in the batch waits for the
     slowest tree of the step, measured here as ``lockstep_waste``).
 
-Run on TPU:  python -m benchmarks.nuts_vs_chees [--quick]
+Run on GPU:  python -m benchmarks.nuts_vs_chees [--quick]
 Writes benchmarks/nuts_vs_chees.json and prints one JSON line per sampler.
 """
 
@@ -191,8 +191,9 @@ def main(argv=None):
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.ipx_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from ip_mcmc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache(min_compile_time_s=1.0)
 
     from ip_mcmc_tpu import configs
 

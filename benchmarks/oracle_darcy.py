@@ -92,8 +92,8 @@ class OracleDarcyPCN:
         nearest coarse cells, bias-corrected by the mean fine-coarse
         discrepancy over ``n_cal`` prior draws and noise-inflated by its
         std. (The coarse solve is dense Cholesky — the reference idiom —
-        so the oracle's surrogate is at least as good as the TPU kernel's
-        CG-8 one; DA is exact for any surrogate either way.)"""
+        so the oracle's surrogate is at least as good as the fused
+        engine's CG-3 one; DA is exact for any surrogate either way.)"""
         coarse = OracleDarcyPCN(n_grid=n_coarse)
         i_f, j_f = self.obs // self.n, self.obs % self.n
 
@@ -114,6 +114,8 @@ class OracleDarcyPCN:
             r = (y_surr - coarse.forward(u)) / scale
             return 0.5 * r @ r
 
+        # the calibration, for evaluating the same Φ* with another solver
+        phi_surr.y_surr, phi_surr.scale, phi_surr.coarse = y_surr, scale, coarse
         return phi_surr
 
     def run_da_pcn(self, y, noise_std, beta, subchain_len, n_outer, rng,
@@ -122,7 +124,7 @@ class OracleDarcyPCN:
         pCN steps against the calibrated coarse surrogate, then one exact
         correction per outer step (Christen–Fox 2005 surrogate-transition
         form — identical algorithm to ops.fused_da_pcn_chain, so the
-        TPU-vs-oracle ratio on this row is pure hardware+implementation,
+        device-vs-oracle ratio on this row is pure hardware+implementation,
         no algorithm factor). Returns (outer-step samples, outer_accept,
         inner_accept)."""
         if phi_surr is None:

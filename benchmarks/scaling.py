@@ -22,8 +22,9 @@ import time
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/root/.ipx_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from ip_mcmc_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache(min_compile_time_s=1.0)
 
 from ip_mcmc_tpu import distributions, driver, parallel, potentials
 from ip_mcmc_tpu.kernels import pcn

@@ -1,22 +1,22 @@
 """SMC log-evidence with error bars (round-2 VERDICT missing #2 / weak #2).
 
-Every previous log-Z comparison was single-seed; the BASELINE.md claims
+Every previous log-Z comparison was single-seed; the earlier claims
 ("inside the resampling-noise error bar", "TI brackets it") were therefore
 unbacked. This harness replicates each estimator K times over independent
 seeds and reports mean ± std per cell:
 
 - NumPy oracle (reference-equivalent ``tests/oracle/oracle_mcmc.smc_tempered``)
   at 256 particles (the oracle is ~200 evals/s — 4096 particles would take
-  hours per seed; the TPU cells cover the width axis);
-- TPU cold path (``smc.run``) at 256 and 4096 particles;
-- TPU warm path (``smc.run_batched`` + warm-DST mutation) at 256 and 4096;
-- thermodynamic-integration cross-estimate per TPU run (same samples,
+  hours per seed; the GPU cells cover the width axis);
+- GPU cold path (``smc.run``) at 256 and 4096 particles;
+- GPU warm path (``smc.run_batched`` + warm-DST mutation) at 256 and 4096;
+- thermodynamic-integration cross-estimate per GPU run (same samples,
   different estimator).
 
 Verdicts printed: the cross-side gap at equal N in units of the combined
 spread, and whether the TI estimate is statistically consistent (NOT
 "bracketing" — TI from the same adaptive ladder is a one-sided-biased
-estimator at finite stage count; see BASELINE.md).
+estimator at finite stage count).
 
 Environment pinning: BLAS threads forced to 1 BEFORE numpy import so the
 oracle rows are reproducible across rounds (round-2 VERDICT weak #5: a
@@ -81,8 +81,8 @@ def run_cells(n_seeds, quick):
     out["oracle_small"] = _stats(logzs)
     out["oracle_small"]["wall_s"] = time.perf_counter() - t0
 
-    # --- TPU cold (smc.run) at n_small and n_large --------------------------
-    def tpu_cold(n):
+    # --- GPU cold (smc.run) at n_small and n_large --------------------------
+    def dev_cold(n):
         lz, ti = [], []
         for s in seeds:
             state, info = smc.run(
@@ -94,18 +94,18 @@ def run_cells(n_seeds, quick):
             ti.append(smc.thermodynamic_log_z(info))
         return lz, ti
 
-    for label, n in (("tpu_cold_small", n_small), ("tpu_cold_large", n_large)):
-        lz, ti = tpu_cold(n)
+    for label, n in (("dev_cold_small", n_small), ("dev_cold_large", n_large)):
+        lz, ti = dev_cold(n)
         out[label] = _stats(lz)
         out[label + "_ti"] = _stats(ti)
 
-    # --- TPU warm (smc.run_batched) at n_small and n_large ------------------
+    # --- GPU warm (smc.run_batched) at n_small and n_large ------------------
     phi2, aux_dim = problem_warm.batched_warm_potential
     wkp = dict(problem_warm.kernel_params)
     wkp.pop("batched", None)
     wkp.pop("warm", None)
 
-    def tpu_warm(n):
+    def dev_warm(n):
         lz, ti = [], []
         for s in seeds:
             state, info = smc.run_batched(
@@ -120,8 +120,8 @@ def run_cells(n_seeds, quick):
             ti.append(smc.thermodynamic_log_z(info))
         return lz, ti
 
-    for label, n in (("tpu_warm_small", n_small), ("tpu_warm_large", n_large)):
-        lz, ti = tpu_warm(n)
+    for label, n in (("dev_warm_small", n_small), ("dev_warm_large", n_large)):
+        lz, ti = dev_warm(n)
         out[label] = _stats(lz)
         out[label + "_ti"] = _stats(ti)
 
@@ -136,11 +136,11 @@ def run_cells(n_seeds, quick):
         }
 
     out["verdict_cold_vs_oracle_small"] = gap_sigma(
-        out["tpu_cold_small"], out["oracle_small"])
+        out["dev_cold_small"], out["oracle_small"])
     out["verdict_warm_vs_oracle_small"] = gap_sigma(
-        out["tpu_warm_small"], out["oracle_small"])
+        out["dev_warm_small"], out["oracle_small"])
     out["verdict_warm_vs_cold_large"] = gap_sigma(
-        out["tpu_warm_large"], out["tpu_cold_large"])
+        out["dev_warm_large"], out["dev_cold_large"])
     out["environment"] = {
         "blas_threads": 1,
         "python": platform.python_version(),
@@ -160,8 +160,8 @@ def main():
     res = run_cells(args.seeds, args.quick)
     with open(args.out, "w") as fh:
         json.dump(res, fh, indent=1)
-    for k in ("oracle_small", "tpu_cold_small", "tpu_warm_small",
-              "tpu_cold_large", "tpu_warm_large"):
+    for k in ("oracle_small", "dev_cold_small", "dev_warm_small",
+              "dev_cold_large", "dev_warm_large"):
         r = res[k]
         print(f"{k:18s} logZ = {r['mean']:8.3f} ± {r['std']:.3f}  (n={r['n']})")
     for k in ("verdict_cold_vs_oracle_small", "verdict_warm_vs_oracle_small",

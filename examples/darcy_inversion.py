@@ -29,7 +29,7 @@ def main():
     ap.add_argument("--n-samples", type=int, default=500)
     ap.add_argument("--smc", action="store_true", help="use adaptive SMC instead of pCN")
     ap.add_argument("--fused", action="store_true",
-                    help="fused Pallas warm-DST kernel (the headline path)")
+                    help="fused warm-DST engine")
     args = ap.parse_args()
 
     n_grid = 16

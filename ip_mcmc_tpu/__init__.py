@@ -1,6 +1,6 @@
-"""ip_mcmc_tpu — TPU-native MCMC inference engine for Bayesian inverse
+"""ip_mcmc_tpu — many-chain MCMC inference engine for Bayesian inverse
 problems, with the capabilities of the reference ``ochsnerd/ip_mcmc``
-(pure-NumPy thesis library; see SURVEY.md) rebuilt JAX/XLA/Pallas-first.
+(pure-NumPy thesis library; see SURVEY.md) rebuilt on JAX/XLA.
 
 Layers (mirroring the reference's layer map, SURVEY.md §1.2):
 - distributions  : priors & noise models (L1)

@@ -284,7 +284,8 @@ class MCMCSampler:
 
     The proposer/accepter pair is fused into one jitted scan (SURVEY.md
     §3.1's per-step Python loop is gone). ``rng`` is a jax PRNG key or int
-    seed — the reference's ``np.random.Generator`` has no TPU equivalent.
+    seed — the reference's ``np.random.Generator`` has no device
+    counterpart.
     """
 
     def __init__(self, proposer, accepter, rng):

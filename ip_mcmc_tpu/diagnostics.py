@@ -3,7 +3,7 @@
 Reference has none (SURVEY.md §5.5 — its one observability feature is the
 ``CountedAccepter`` acceptance counter). BASELINE.json requires "diagnostics
 (R-hat, ESS) run on-device": everything here is pure jnp — FFT
-autocorrelation on the VPU, reductions across the chain axis — and jittable,
+autocorrelation on the device, reductions across the chain axis — and jittable,
 so it can run inside the same program as the sampler (or be psum-reduced
 across hosts by the mesh layer).
 

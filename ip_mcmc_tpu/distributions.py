@@ -3,14 +3,14 @@
 Capability parity with the reference's distribution layer (SURVEY.md §2.1:
 ``GaussianDistribution``, ``LogNormalDistribution``, ``IndependentDistributions``
 expected in ``ip_mcmc/distribution.py`` — mount empty, recalled [H]/[M]),
-redesigned TPU-first:
+redesigned for batched accelerator execution:
 
 - every distribution is a frozen pytree dataclass, so it can be closed over by
   ``jit``-ed kernels or carried through ``scan``/``vmap``;
 - sampling uses counter-based ``jax.random`` keys (replayable, shardable);
 - covariance structure is explicit (diagonal vs dense Cholesky) so the hot
-  Gaussian-draw path is either a VPU elementwise multiply or a single batched
-  triangular matmul on the MXU — never a generic ``multivariate_normal``.
+  Gaussian-draw path is either a elementwise multiply or a single batched
+  triangular matmul — never a generic ``multivariate_normal``.
 
 The KL-truncated Gaussian-process prior of the inverse problems is a
 ``DiagGaussian`` over KL coefficients (the KL basis diagonalizes the prior
@@ -24,6 +24,7 @@ import math
 import jax
 import jax.numpy as jnp
 
+from ip_mcmc_tpu.precision import mm
 from ip_mcmc_tpu.utils.struct import pytree_dataclass
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -74,7 +75,7 @@ class Gaussian:
     """N(mean, cov) with dense covariance, stored via its Cholesky factor.
 
     ``chol`` is lower-triangular with cov = chol @ chol.T. Sampling is one
-    triangular matmul (MXU-friendly, batches trivially under vmap).
+    triangular matmul (GEMM-friendly, batches trivially under vmap).
     """
 
     mean: jnp.ndarray  # (d,)
@@ -99,10 +100,12 @@ class Gaussian:
 
     def sample_centered(self, key, sample_shape=()):
         z = jax.random.normal(key, tuple(sample_shape) + self.mean.shape)
-        return z @ self.chol.T
+        return self.scale_apply(z)
 
     def scale_apply(self, z):
-        return z @ self.chol.T
+        # full precision: pCN's prior-reversibility needs the covariance
+        # itself, not a TF32-rounded factor
+        return mm(z, self.chol.T)
 
     def whiten(self, x):
         d = x - self.mean

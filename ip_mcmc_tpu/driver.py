@@ -5,7 +5,7 @@ Reference semantics (layer L4, ``ip_mcmc/sampler.py`` [H behavior]):
 ``run(u0, n_samples, burn_in, sample_interval)`` → propose / accept-reject /
 record with burn-in and thinning, returning ``(n_samples, dim)``.
 
-TPU-native design:
+Accelerator design:
 - the per-step Python loop becomes ``lax.scan`` (steps are compiled, not
   interpreted);
 - thinning is a scan-of-scans — inner ``scan`` of ``thin`` steps, outer scan

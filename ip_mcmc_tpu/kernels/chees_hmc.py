@@ -18,12 +18,12 @@ whose gradient w.r.t. τ has the per-chain Monte-Carlo estimator
 expectation over the CHAIN axis, i.e. exactly what thousands of vmapped
 chains give for free, one psum/pmean per step when sharded.
 
-TPU-first design: the kernel is BATCH-LEVEL — it updates the whole
+Accelerator design: the kernel is BATCH-LEVEL — it updates the whole
 (n_chains, d) block at once. Trajectory jitter u is shared across chains
 (one Halton draw per iteration), so the leapfrog count is a single traced
 scalar and the integration is one ``lax.fori_loop`` over whole-batch
 leapfrog steps — no per-chain dynamic control flow, no masked tree building,
-MXU-dense gradient batches. Step size ε adapts by dual averaging on the
+dense-matmul gradient batches. Step size ε adapts by dual averaging on the
 pooled acceptance; τ by Adam on the ChEES gradient; both frozen after
 warmup (detailed balance).
 """

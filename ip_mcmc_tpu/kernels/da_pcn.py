@@ -13,7 +13,7 @@ Validity: the subchain kernel K* is reversible w.r.t. π*, so the proposal
 q(u, dv) = K*ᵏ(u, dv) satisfies π*(du) q(u, dv) = π*(dv) q(v, du) and the
 π*-ratio cancels out of the MH ratio for π ∝ e^{−Φ} μ₀, leaving exactly α.
 
-Why this form on TPU: the classic two-stage DA gates the expensive solve
+Why this form on an accelerator: the classic two-stage DA gates the expensive solve
 behind a data-dependent branch — useless under ``vmap`` where all chains run
 in lock-step and ``where`` evaluates both sides. The k-step form has a STATIC
 cost structure (k cheap solves + 1 expensive solve per outer step, for every

@@ -6,7 +6,7 @@ TUNING-FREE (no β) and rejection-free (every step moves).
 
 Each transition draws an auxiliary prior point ν and slice-samples the
 angle θ on the ellipse u' = (u−m)cosθ + ν sinθ + m, shrinking the bracket
-until the point beats the log-likelihood threshold. TPU-native form: the
+until the point beats the log-likelihood threshold. Accelerator form: the
 shrinkage loop is a ``lax.while_loop`` with a capped iteration count
 (guaranteed-accept fallback at θ→0), static shapes, vmap-able over chains
 (batch finishes when the slowest chain does — the usual trade).

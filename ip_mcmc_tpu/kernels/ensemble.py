@@ -9,7 +9,7 @@ proposal covariance to adapt — but degenerates with dimension, so FES
 restricts it to the first ``n_low_modes`` whitened KL coordinates and
 updates the complement with dimension-robust pCN.
 
-TPU mapping: the walker ensemble IS the chain axis. The parallel stretch
+Accelerator mapping: the walker ensemble IS the chain axis. The parallel stretch
 move uses the red-black (two half-ensemble) scheme — half A proposes with
 partners gathered from half B and vice versa, so the whole update is two
 batched potential evaluations plus one gather (which lowers to a collective

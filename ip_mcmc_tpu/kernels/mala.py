@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 
 from ip_mcmc_tpu.kernels.base import MHInfo, mh_select
+from ip_mcmc_tpu.precision import mm
 from ip_mcmc_tpu.utils.struct import pytree_dataclass
 
 
@@ -42,14 +43,14 @@ def build_kernel(log_density_fn, step_size, precond=None):
         if precond is None:
             return g
         if dense:
-            return precond @ (precond.T @ g)
+            return mm(precond, mm(precond.T, g))
         return precond * g
 
     def sqrt_sigma_noise(xi):
         if precond is None:
             return xi
         if dense:
-            return precond @ xi
+            return mm(precond, xi)
         return jnp.sqrt(precond) * xi
 
     def mahalanobis(d):

@@ -17,7 +17,7 @@ after Phan & Pradhan's checkpointing scheme):
   ρ·(M⁻¹ p_a) < 0 or ρ·(M⁻¹ p_b) < 0 with ρ = Σ_{j∈[a,b]} p_j.
 
 Everything is static-shaped; under ``vmap`` the while loops run until all
-chains finish (masked wasted work only), which is the standard TPU trade.
+chains finish (masked wasted work only), which is the standard lockstep trade.
 """
 
 from __future__ import annotations

@@ -9,8 +9,8 @@ pCN is prior-reversible, so only the data-misfit potential Φ enters the
 accept ratio — dimension-robust on function-space priors, and derivative-free
 (the sampler of choice for the shock-forming Burgers forward model).
 
-TPU-first: the prior draw ξ is ``prior.sample_centered`` (elementwise VPU op
-for KL/diagonal priors, one triangular MXU matmul for dense); Φ(u) is cached
+Accelerator design: the prior draw ξ is ``prior.sample_centered`` (elementwise op
+for KL/diagonal priors, one triangular matmul for dense); Φ(u) is cached
 in the state so each step costs exactly one forward-model evaluation.
 """
 

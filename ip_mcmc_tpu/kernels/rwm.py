@@ -5,7 +5,7 @@ Reference parity: ``StandardRWProposer`` (v = u + δξ) + ``StandardRWAccepter``
 fused into one jittable ``step(key, state) -> (state, info)``.
 
 The proposal covariance is either isotropic (δ·ξ), diagonal, or a dense
-Cholesky factor (δ·L·ξ — one triangular matmul, MXU-friendly); the dense path
+Cholesky factor (δ·L·ξ — one triangular matmul, GEMM-friendly); the dense path
 is what cross-chain covariance adaptation feeds (ip_mcmc_tpu.adapt).
 """
 

@@ -6,7 +6,7 @@ energy barriers, adjacent-pair swaps transport their discoveries to the
 cold chain — the standard cure for multimodal posteriors that plain
 pCN/RWM cannot mix across (tested on a bimodal target).
 
-TPU mapping: the ladder is just a leading axis of the state
+Accelerator mapping: the ladder is just a leading axis of the state
 ((T, d) positions, (T,) cached untempered Φ); mutation is the pCN update
 vectorized over T, swaps are parity-alternating roll/compare/where on the
 T axis — pure vector ops, no collectives, and the whole kernel still

@@ -6,10 +6,10 @@ data for a hyperbolic conservation law with a Godunov-type FV solver
 NON-differentiable — use the derivative-free kernels (RWM/pCN) on it, exactly
 as the reference does (SURVEY.md §7.3 item 3).
 
-TPU-native design: the time loop is ``lax.scan`` with a STATIC step count
+Accelerator design: the time loop is ``lax.scan`` with a STATIC step count
 (dt fixed by a CFL bound on the prior's amplitude range — no data-dependent
-shapes), the flux sweep is pure elementwise VPU work on the (n_cells,) state
-(and vmaps over chains into (chains, n_cells) — wide VPU lanes), periodic BC
+shapes), the flux sweep is pure elementwise work on the (n_cells,) state
+(and vmaps over chains into (chains, n_cells) — wide batches), periodic BC
 via ``jnp.roll``.
 """
 
@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ip_mcmc_tpu.models import kl
+from ip_mcmc_tpu.precision import mm
 
 
 def godunov_flux2(u_left, u_right):
@@ -28,7 +29,7 @@ def godunov_flux2(u_left, u_right):
 
     The ½ is algebraically hoisted out of the per-face max (0.5·max(a,b) ≡
     max(0.5a, 0.5b), exactly in fp) and folded into the time-step constant
-    by callers — two fewer VPU multiplies per cell per CFL step in the hot
+    by callers — two fewer multiplies per cell per CFL step in the hot
     FV loop (~18% of the stencil's op count)."""
     fl = jnp.square(jnp.maximum(u_left, 0.0))
     fr = jnp.square(jnp.minimum(u_right, 0.0))
@@ -130,7 +131,7 @@ def make_burgers_forward(
         segment_steps = np.diff(np.concatenate([[0], step_idx])).tolist()
 
     def forward(u):
-        state = mean + u @ scaled_basis
+        state = mean + mm(u, scaled_basis)
         outs = []
         for seg in segment_steps:  # static unroll: ≤ len(obs_times) scans
             state = integrate(state, dt, int(seg))
@@ -152,9 +153,9 @@ def make_burgers_forward(
 
 def make_batched_misfit(aux, data, noise_scale):
     """Batched misfit Φ for a FEATURES-FIRST (K, block) coefficient batch —
-    the Pallas form consumed by ops.fused_pcn_chain: the ENTIRE FV time
-    loop runs inside the fused kernel with chains on VPU lanes (fields laid
-    out (cells, block); the stencil rolls along sublanes).
+    the form consumed by ops.fused_pcn_chain: the ENTIRE FV time loop runs
+    inside the fused engine with chains on the last axis (fields laid out
+    (cells, block); the stencil rolls along the cell axis).
     """
     data = jnp.asarray(data, jnp.float32)
     # scalar or per-observation (m,) noise scale — a vector downweights
@@ -171,18 +172,17 @@ def make_batched_misfit(aux, data, noise_scale):
     segments = [int(s) for s in aux.get("segment_steps", [aux["n_steps"]])]
     n_cells = aux["n_cells"]
     dt_over_h = dt * n_cells
-    # observation as a one-hot matmul (Mosaic has no gather lowering)
+    # observation as a one-hot matmul (no gather in the fused step)
     obs_mat = np.zeros((len(obs), n_cells), np.float32)
     obs_mat[np.arange(len(obs)), obs] = 1.0
     obs_mat = jnp.asarray(obs_mat)
 
     def phi(U):  # (K, block) -> (block,)
-        state = mean[:, None] + basis_t @ U  # (cells, block), MXU matmul
+        state = mean[:, None] + mm(basis_t, U)  # (cells, block)
 
         half_dt_over_h = 0.5 * dt_over_h  # ½ hoisted out of godunov_flux2
 
         def body(_, state):
-            # fori_loop, not scan: Mosaic only lowers index-style loops
             u_down = jnp.roll(state, -1, axis=0)
             flux2_down = godunov_flux2(state, u_down)
             flux2_up = jnp.roll(flux2_down, 1, axis=0)
@@ -191,7 +191,7 @@ def make_batched_misfit(aux, data, noise_scale):
         preds = []
         for seg in segments:  # static unroll over observation times
             state = jax.lax.fori_loop(0, seg, body, state)
-            preds.append(obs_mat @ state)  # (m, block)
+            preds.append(mm(obs_mat, state))  # (m, block)
         pred = jnp.concatenate(preds, axis=0)
         r = (data[:, None] - pred) / noise_scale
         return 0.5 * jnp.sum(r * r, axis=0)

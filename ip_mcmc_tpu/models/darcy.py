@@ -5,12 +5,12 @@ inversion, 64-dim KL expansion, 4096 parallel chains". The unknown is the
 log-permeability log a(x), a Gaussian random field truncated to a KL
 coefficient vector u ∈ R^K (K = 64 = 8×8 tensor sine modes by default).
 
-TPU-native design:
-- field reconstruction log a = u·√λ @ basis — one (K)×(K, n²) matmul (MXU);
+Accelerator design:
+- field reconstruction log a = u·√λ @ basis — one (K)×(K, n²) matmul;
 - cell-centered finite volumes, harmonic-mean face transmissibilities,
   5-point stencil assembled as a DENSE (n², n²) SPD matrix with statically
   precomputed scatter indices — dense because the batched Cholesky
-  factorization of thousands of chains' matrices is exactly what the MXU
+  factorization of thousands of chains' matrices is exactly what the matrix units
   eats (a sparse solver would serialize on-chip);
 - solve via ``jnp.linalg.cholesky`` + triangular solves — differentiable
   (MALA/NUTS on Darcy work through implicit AD of the solve), and the whole
@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ip_mcmc_tpu.models import kl
+from ip_mcmc_tpu.precision import mm
 
 
 def _stencil_indices(n: int):
@@ -80,7 +81,7 @@ def _face_transmissibilities(a, n: int):
 
 
 def apply_operator(a, p, n: int):
-    """Matrix-free A(a) @ p on (n, n) grids — pure stencil arithmetic (VPU),
+    """Matrix-free A(a) @ p on (n, n) grids — pure stencil arithmetic,
     identical to ``assemble_operator``'s matrix (tested), no scatters."""
     h2 = float(n * n)
     t_h, t_v = _face_transmissibilities(a, n)
@@ -131,7 +132,7 @@ def dst_basis(n: int):
 
 def make_dst_preconditioner(a, n: int):
     """Fast-Poisson preconditioner M = A(ā), ā = geometric mean of the
-    coefficient field: M⁻¹r = Sᵀ[(S r Sᵀ) / λ]S — two (n, n) MXU matmuls
+    coefficient field: M⁻¹r = Sᵀ[(S r Sᵀ) / λ]S — two (n, n) matmuls
     per application, and the eigenvalue table λ_ij = ā n²(e_i + e_j). The
     scalable choice for large grids where Jacobi-PCG iteration counts grow
     with n (ROADMAP P1)."""
@@ -280,11 +281,11 @@ def make_darcy_forward(
             )
 
     def forward(u):
-        log_a = log_a_mean + u @ scaled_basis  # (n²,) — MXU matmul
+        log_a = log_a_mean + mm(u, scaled_basis)  # (n²,)
         a = jnp.exp(log_a).reshape(n_grid, n_grid)
         if method == "cg":
             # matrix-free stencil CG: no dense assembly, no scatters —
-            # compiles ~100x faster on TPU and scales to large grids
+            # compiles ~100x faster and scales to large grids
             p = solve_cg(a, f, n_grid, n_iters=cg_iters, precond=precond,
                          solver=solver, omega=omega)
         elif method == "sharded":
@@ -309,19 +310,19 @@ def make_darcy_forward(
 
 
 def _shift_up(x, k):
-    """x[p+k] in flat sublane index (zeros shifted in at the tail)."""
+    """x[p+k] in flat flat index (zeros shifted in at the tail)."""
     return jnp.concatenate([x[k:], jnp.zeros((k,) + x.shape[1:], x.dtype)], axis=0)
 
 
 def _shift_down(x, k):
-    """x[p-k] in flat sublane index (zeros shifted in at the head)."""
+    """x[p-k] in flat flat index (zeros shifted in at the head)."""
     return jnp.concatenate([jnp.zeros((k,) + x.shape[1:], x.dtype), x[:-k]], axis=0)
 
 
 def _flat_masks(n):
-    """Constant (n², 1) masks for the FLAT stencil: Mosaic supports neither
-    scatter/gather nor 2D↔3D reshapes in-kernel, so the 5-point stencil is
-    expressed on the flattened grid with sublane shifts (±1 horizontal, ±n
+    """Constant (n², 1) masks for the FLAT stencil: the 5-point stencil is
+    expressed on the flattened (n², block) grid, with no scatter/gather and
+    no 2D↔3D reshape, as flat-index shifts (±1 horizontal, ±n
     vertical) and these masks kill row wrap-around / boundary terms."""
     idx = np.arange(n * n)
     i, j = idx // n, idx % n
@@ -363,7 +364,7 @@ def _operator_diagonal_flat(a, n, masks, t_h, t_v):
 def _cg_flat(a, b, n, masks, t_h, t_v, inv_diag, n_iters, x0=None, inv_m=None,
              apply_fn=None):
     """Batched PCG on the flat (n², block) layout — shifts + elementwise +
-    per-chain reductions (Mosaic-lowerable). ``inv_m`` overrides the Jacobi
+    per-chain reductions . ``inv_m`` overrides the Jacobi
     preconditioner (e.g. the flat DST fast-Poisson apply); ``apply_fn``
     overrides the operator apply (e.g. the bf16 mixed-precision variant —
     CG vectors and reductions stay f32 either way)."""
@@ -405,7 +406,7 @@ def _richardson_flat(a, b, n, masks, t_h, t_v, inv_diag, n_iters,
     there are NO per-iteration dot products — the ablation split
     (benchmarks/da_vpu_split.py) measured the fused DA surrogate's CG body
     at ~39% of the whole outer step, and each CG iteration spends part of
-    that on two (n², block)→(block,) sublane reductions plus the α/β
+    that on two (n², block)→(block,) reductions plus the α/β
     scalar algebra and broadcasts, none of which Richardson has. Per
     iteration this is ONE stencil apply + ONE preconditioner apply + an
     axpy; n_iters iterations do n_iters−1 stencil applies (the first
@@ -446,7 +447,7 @@ def _flat_dst_preconditioner(n, a, precond_dtype=jnp.bfloat16):
     """Fast-Poisson preconditioner on the FLAT (n², block) layout: the 2-D
     sine transform factorizes as vec(S R Sᵀ) = (S⊗I)(I⊗S) vec(R), and both
     Kronecker factors are small (n², n²) matrices — so each application is
-    four MXU matmuls + an eigenvalue divide, instead of more VPU stencil
+    four matmuls + an eigenvalue divide, instead of more stencil
     iterations. The matmuls run in ``precond_dtype`` (bf16 by default: a
     preconditioner only steers CG, so its rounding never biases the
     solution — measured iterations-to-tolerance identical to f32).
@@ -466,22 +467,22 @@ def _flat_dst_preconditioner(n, a, precond_dtype=jnp.bfloat16):
     a_bar = jnp.exp(jnp.mean(jnp.log(a), axis=0))  # (block,)
     denom = lam_flat * a_bar[None, :]
 
-    def mm(A, x):  # bf16 inputs, f32 accumulation (Mosaic requires 32-bit acc)
+    def mm_lp(A, x):  # bf16 inputs, f32 accumulation
         return jnp.matmul(
             A, x.astype(precond_dtype), preferred_element_type=jnp.float32
         )
 
     def mm_t(A, x):
         """Aᵀ @ x WITHOUT materializing Aᵀ (dot_general with the lhs
-        contraction on dim 0 — Mosaic's transpose_lhs path). Materialized
-        transposes double the factors' VMEM footprint in-kernel."""
+        contraction on dim 0 — a transposed-lhs dot). Materialized
+        transposes double the factors' memory footprint."""
         return jax.lax.dot_general(
             A, x.astype(precond_dtype), (((0,), (0,)), ((), ())),
             preferred_element_type=jnp.float32,
         )
 
     def inv_m(r):
-        rt = mm(SI, mm(IS, r)) / denom
+        rt = mm_lp(SI, mm_lp(IS, r)) / denom
         return mm_t(IS, mm_t(SI, rt))
 
     return inv_m
@@ -498,9 +499,9 @@ def _flat_truncated_dst_preconditioner(n, a, inv_diag, k_modes,
     λ_{k1,k2} = n²(e_{k1}+e_{k2})) and D⁻¹ the Jacobi diagonal of the TRUE
     variable-coefficient operator. Why this beats the dense Kronecker
     factorization at n ≥ 32: the dense apply costs O(n⁴) MACs/chain with
-    (n², n²) factors that outgrow VMEM (32 MB each at n = 64, bf16), while
-    this is two TALL-SKINNY MXU matmuls — O(K·n²) with perfect MXU shapes
-    (contraction n² ≥ 1024, block on lanes) and (n², K) factors (1 MB at
+    (n², n²) factors that outgrow on-chip memory (32 MB each at n = 64, bf16), while
+    this is two TALL-SKINNY matmuls — O(K·n²) with GEMM-friendly shapes
+    (contraction n² ≥ 1024, block on the last axis) and (n², K) factors (1 MB at
     n = 64, K = 256). Per-mode quality is IDENTICAL to the full DST (both
     correct with 1/(ā λ) on the sine modes — the same constant-coefficient
     approximation); truncation only leaves the HIGH modes to D⁻¹-CG, which
@@ -527,14 +528,14 @@ def _flat_truncated_dst_preconditioner(n, a, inv_diag, k_modes,
     a_bar = jnp.exp(jnp.mean(jnp.log(a), axis=0))       # (block,)
     denom = lam_k * a_bar[None, :]
 
-    def mm(A, x):  # bf16 inputs, f32 accumulation
+    def mm_lp(A, x):  # bf16 inputs, f32 accumulation
         return jnp.matmul(
             A, x.astype(precond_dtype), preferred_element_type=jnp.float32
         )
 
     def inv_m(r):
-        rt = mm(V, r) / denom          # (K, block) spectral correction
-        return inv_diag * r + mm(Vt, rt)
+        rt = mm_lp(V, r) / denom          # (K, block) spectral correction
+        return inv_diag * r + mm_lp(Vt, rt)
 
     return inv_m
 
@@ -544,19 +545,18 @@ def make_batched_misfit(aux, data, noise_scale, cg_iters: int = 48,
                         precond: str = "jacobi", precond_modes: int = 128,
                         solver: str = "cg", omega: float = 1.0):
     """Batched misfit Φ for FEATURES-FIRST (K, block) coefficient batches —
-    the form consumed by ``ops.fused_pcn_chain``: KL reconstruction (MXU
-    matmul), the ENTIRE Jacobi-PCG Darcy solve, observation and misfit all
-    run inside the fused kernel, chains on VPU lanes, the flat (n², block)
-    solution grid resident in VMEM (flat because Mosaic has no in-kernel
-    2D↔3D reshape; the stencil uses sublane shifts + masks).
+    the form consumed by ``ops.fused_pcn_chain``: KL reconstruction
+    (matmul), the ENTIRE Jacobi-PCG Darcy solve, observation and misfit all
+    run inside the fused engine, chains on the last axis, the solution
+    grid flat (n², block) (the stencil uses flat-index shifts + masks).
 
     ``differentiable=True`` attaches a ``custom_vjp`` implementing the
     ADJOINT METHOD (one extra CG solve of A λ = ∂Φ/∂x, plus the closed-form
     derivative of the harmonic-mean transmissibilities w.r.t. the cell
     conductivities) — reverse-mode through the CG iterations would need
-    cg_iters×(n², block) residuals in VMEM; the adjoint needs none. This is
-    what lets ``ops.fused_mala_chain`` run gradient-based MCMC on Darcy
-    entirely inside one Pallas kernel.
+    cg_iters×(n², block) residuals in memory; the adjoint needs none. This
+    is what lets ``ops.fused_mala_chain`` run gradient-based MCMC on Darcy
+    inside one fused program.
     """
     data = jnp.asarray(data, jnp.float32)
     noise_scale = jnp.asarray(noise_scale, jnp.float32)
@@ -573,7 +573,7 @@ def make_batched_misfit(aux, data, noise_scale, cg_iters: int = 48,
     f = jnp.asarray(aux["source"]).reshape(-1, 1)
     n = int(aux["n_grid"])
     masks = _flat_masks(n)
-    # observation as a one-hot matmul (Mosaic has no gather lowering)
+    # observation as a one-hot matmul (no gather in the fused step)
     obs_mat = np.zeros((len(obs), n * n), np.float32)
     obs_mat[np.arange(len(obs)), obs] = 1.0
     obs_mat_t = jnp.asarray(obs_mat.T.copy())
@@ -604,7 +604,7 @@ def make_batched_misfit(aux, data, noise_scale, cg_iters: int = 48,
     def _forward(U):
         """U (K, block) → (phi (block,), a, x, res) — shared fwd pass."""
         block = U.shape[1]
-        log_a = log_a_mean + basis_t @ U  # (n², block)
+        log_a = log_a_mean + mm(basis_t, U)  # (n², block)
         a = jnp.exp(log_a)
         t_h, t_v = _flat_transmissibilities(a, n, masks)
         b = jnp.broadcast_to(f, (n * n, block))
@@ -616,7 +616,7 @@ def make_batched_misfit(aux, data, noise_scale, cg_iters: int = 48,
         else:
             x = _cg_flat(a, b, n, masks, t_h, t_v, inv_diag, cg_iters,
                          inv_m=_inv_m(a, inv_diag))
-        pred = obs_mat @ x  # (m, block), MXU matmul
+        pred = mm(obs_mat, x)  # (m, block)
         res = (data[:, None] - pred) / noise_scale
         return 0.5 * jnp.sum(res * res, axis=0), a, x, res
 
@@ -640,7 +640,7 @@ def make_batched_misfit(aux, data, noise_scale, cg_iters: int = 48,
         t_h, t_v = _flat_transmissibilities(a, n, masks)
         inv_diag = 1.0 / _operator_diagonal_flat(a, n, masks, t_h, t_v)
         # ∂Φ/∂x = −Oᵀ(res/σ); adjoint solve A λ = ∂Φ/∂x (A symmetric)
-        dphi_dx = -(obs_mat_t @ (res / noise_scale))
+        dphi_dx = -mm(obs_mat_t, res / noise_scale)
         lam = _cg_flat(a, dphi_dx, n, masks, t_h, t_v, inv_diag, cg_iters,
                        inv_m=_inv_m(a, inv_diag))
         # ∂Φ/∂a = −∇_a[λᵀ A(a) x]  (λ, x fixed):
@@ -659,7 +659,7 @@ def make_batched_misfit(aux, data, noise_scale, cg_iters: int = 48,
             + 2.0 * h2 * x * lam * masks["edge"]
         )
         g_loga = a * (-g_a)  # chain: a = exp(log a); sign from δΦ = −λᵀ δA x
-        g_U = basis @ (g_loga * t[None, :])  # (K, block)
+        g_U = mm(basis, g_loga * t[None, :])  # (K, block)
         return (g_U,)
 
     phi.defvjp(phi_fwd, phi_bwd)
@@ -681,20 +681,20 @@ def make_batched_misfit_warm(aux, data, noise_scale, cg_iters: int = 16,
     warm one with delayed acceptance.
 
     ``precond="dst"``: fast-Poisson preconditioning via flat Kronecker-factor
-    MXU matmuls (bf16) — warm-4 DST beats warm-16 Jacobi in residual, so the
-    VPU stencil iteration count drops ~4× (the headline-bench configuration).
-    The dense factors are O(n⁴)-cost and outgrow VMEM past n = 16.
+    matmuls (bf16) — warm-4 DST beats warm-16 Jacobi in residual, so the
+    stencil iteration count drops ~4× (the headline-bench configuration).
+    The dense factors are O(n⁴)-cost and outgrow on-chip memory past n = 16.
 
     ``precond="dst_trunc"``: the two-level truncated spectral preconditioner
     (``_flat_truncated_dst_preconditioner``) — ``precond_modes`` lowest sine
-    modes as tall-skinny MXU matmuls + the Jacobi diagonal. The fused-kernel
+    modes as tall-skinny matmuls + the Jacobi diagonal. The fused-kernel
     DST option that SCALES: O(K·n²) per apply, (n², K) factors; use for
     n ≥ 32 (round-1 VERDICT item 6).
 
     ``mixed_precision`` (round-4 VERDICT item 5 — one measured lever on the
-    VPU-bound post-swap kernel): "none" (f32 everywhere, the shipping
+    elementwise-bound post-swap kernel): "none" (f32 everywhere, the shipping
     default), "recon" (KL field reconstruction matmul with bf16 inputs /
-    f32 accumulation — MXU at 2× rate, exp stays f32), or "recon+op"
+    f32 accumulation — matmul at 2× rate, exp stays f32), or "recon+op"
     (additionally the CG operator apply — transmissibilities and stencil
     fluxes — in bf16, with CG vectors, reductions and axpy updates kept
     f32). Gated like every kernel swap: accept/warm-Φ/moment parity in
@@ -738,7 +738,7 @@ def make_batched_misfit_warm(aux, data, noise_scale, cg_iters: int = 16,
                 preferred_element_type=jnp.float32,
             )
         else:
-            log_a = log_a_mean + basis_t @ U
+            log_a = log_a_mean + mm(basis_t, U)
         a = jnp.exp(log_a)
         t_h, t_v = _flat_transmissibilities(a, n, masks)
         apply_fn = None
@@ -759,8 +759,7 @@ def make_batched_misfit_warm(aux, data, noise_scale, cg_iters: int = 16,
 
         b = jnp.broadcast_to(f, (n * n, block))
         if precond == "dst":
-            # NB: no Jacobi diagonal here — it would be dead work Mosaic
-            # still executes (the jaxpr isn't DCE'd inside the kernel)
+            # NB: no Jacobi diagonal here — it would be dead work
             inv_m = _flat_dst_preconditioner(n, a)
             inv_diag = None
         elif precond == "dst_trunc":
@@ -773,7 +772,7 @@ def make_batched_misfit_warm(aux, data, noise_scale, cg_iters: int = 16,
             inv_diag = 1.0 / _operator_diagonal_flat(a, n, masks, t_h, t_v)
         x = _cg_flat(a, b, n, masks, t_h, t_v, inv_diag, cg_iters, x0=x0,
                      inv_m=inv_m, apply_fn=apply_fn)
-        pred = obs_mat @ x
+        pred = mm(obs_mat, x)
         res = (data[:, None] - pred) / noise_scale
         return 0.5 * jnp.sum(res * res, axis=0), x
 
@@ -818,7 +817,7 @@ def make_batched_misfit_mala_warm(aux, data, noise_scale, cg_iters: int = 8,
 
     def pag(U, aux0):  # (K, block), (2n², block)
         block = U.shape[1]
-        log_a = log_a_mean + basis_t @ U
+        log_a = log_a_mean + mm(basis_t, U)
         a = jnp.exp(log_a)
         t_h, t_v = _flat_transmissibilities(a, n, masks)
         if precond == "dst":
@@ -837,12 +836,12 @@ def make_batched_misfit_mala_warm(aux, data, noise_scale, cg_iters: int = 8,
         b = jnp.broadcast_to(f, (N, block))
         x = _cg_flat(a, b, n, masks, t_h, t_v, inv_diag, cg_iters,
                      x0=aux0[:N], inv_m=inv_m)
-        pred = obs_mat @ x
+        pred = mm(obs_mat, x)
         res = (data[:, None] - pred) / noise_scale
         phi = 0.5 * jnp.sum(res * res, axis=0)
 
         # adjoint solve, warm-started from the carried λ
-        dphi_dx = -(obs_mat_t @ (res / noise_scale))
+        dphi_dx = -mm(obs_mat_t, res / noise_scale)
         lam = _cg_flat(a, dphi_dx, n, masks, t_h, t_v, inv_diag, cg_iters,
                        x0=aux0[N:], inv_m=inv_m)
         # ∂Φ/∂a = −∇_a[λᵀ A(a) x] (see make_batched_misfit's phi_bwd)
@@ -859,7 +858,7 @@ def make_batched_misfit_mala_warm(aux, data, noise_scale, cg_iters: int = 8,
             + _shift_down(2.0 * h2 * jnp.square(a * den_v) * s_v, n)
             + 2.0 * h2 * x * lam * masks["edge"]
         )
-        grad = basis @ (a * (-g_a))  # (K, block)
+        grad = mm(basis, a * (-g_a))  # (K, block)
         return phi, grad, jnp.concatenate([x, lam], axis=0)
 
     return pag, 2 * N
@@ -895,7 +894,7 @@ def make_pod_surrogate(aux, data, noise_scale, key, n_snapshots: int = 64,
     (Vᵀ A(a) V) c = Vᵀ f (one batched r×r Cholesky) instead of the n²
     grid solve.
 
-    Cost per evaluation: r stencil applies + one (r, n²)·(n², r) MXU
+    Cost per evaluation: r stencil applies + one (r, n²)·(n², r) matmul
     contraction + an r×r solve — vs cg_iters stencil applies for the full
     model. Any surrogate error is REMOVED by delayed acceptance
     (``kernels.da_pcn``): use this as the ``surrogate_fn``.

@@ -4,7 +4,7 @@ The reference represents unknown fields by truncated KL expansions of a
 Gaussian prior (SURVEY.md §1.1 [H]): u(x) = Σ_k c_k √λ_k φ_k(x), with the
 coefficients c ~ N(0, I) in whitened coordinates (equivalently c_k ~ N(0, λ_k)
 with φ_k orthonormal). Samplers operate on the coefficient vector; the field
-reconstruction is ONE matmul coeffs @ basis — exactly what the MXU wants, and
+reconstruction is ONE matmul coeffs @ basis — exactly what the matrix units want, and
 it batches over thousands of chains for free.
 
 We use the Fourier sine/cosine eigenbasis on [0,1] (the KL basis of the

@@ -10,13 +10,15 @@ from __future__ import annotations
 import jax.numpy as jnp
 import numpy as np
 
+from ip_mcmc_tpu.precision import mm
+
 
 def make_forward(A, b=None):
     A = jnp.asarray(A)
     b = None if b is None else jnp.asarray(b)
 
     def forward(u):
-        out = A @ u
+        out = mm(A, u)
         return out if b is None else out + b
 
     return forward

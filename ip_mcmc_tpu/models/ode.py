@@ -2,7 +2,7 @@
 
 Reference analog: the evolution operators consumed by ``EvolutionPotential``
 (SURVEY.md §2.1/§3.4 — ODE/PDE time-stepping loops in Python/NumPy [M]).
-TPU-native design: static step count, ``lax.scan`` over time, observation by
+Accelerator design: static step count, ``lax.scan`` over time, observation by
 static index gather, fully differentiable (AD through the scan — this is the
 gradient path for MALA/NUTS, BASELINE.json config 3), ``jax.checkpoint``
 available for memory-bound adjoints, and the whole solve ``vmap``s over

@@ -2,7 +2,7 @@
 points/times (reference layer, SURVEY.md §2.1 "Observation operator" —
 point-observation class/callable passed into ``EvolutionPotential`` [M]).
 
-TPU-native form: static index gathers (compile-time constants — no dynamic
+Accelerator form: static index gathers (compile-time constants — no dynamic
 shapes), composable with any forward model and usable batched under vmap.
 """
 
@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
+
+from ip_mcmc_tpu.precision import mm
 
 
 def point_observation(indices):
@@ -41,11 +43,11 @@ def time_point_observation(time_indices, space_indices=None):
 
 def linear_observation(weights):
     """O(x) = W x — general bounded linear observation functional
-    (e.g. local averages, sensors with footprints). One MXU matmul."""
+    (e.g. local averages, sensors with footprints). One matmul."""
     weights = jnp.asarray(weights)
 
     def observe(x):
-        return x @ weights.T
+        return mm(x, weights.T)
 
     return observe
 

@@ -1,22 +1,17 @@
-"""Pallas TPU kernels: fully fused MCMC chains (SURVEY.md §2.2's TPU-native
-"inner loop" obligation).
+"""Fused MCMC chains: every entry point runs ``n_steps`` of one sampler for
+all chains inside a single XLA program (SURVEY.md §2.2's "inner loop"
+obligation), with a counter-hash RNG (~8 integer ops per draw) in place of
+threefry key splitting.
 
-For small/analytic targets the scan+vmap path is bounded by per-step
-overheads: threefry key math and the scan carry's HBM round-trips. These
-kernels run ``n_steps`` of RWM / pCN for a block of chains entirely in
-VMEM, with a counter-hash RNG (~8 vector ALU ops per draw, portable across
-compiled/interpret modes), touching HBM exactly twice per launch.
+LAYOUT IS CHAIN-LAST: state is (d, chains), so every elementwise op of
+the step runs along the long chain axis. Consequently ``potential_fn``
+here takes a FEATURES-FIRST batch: (d, block) -> (block,). Public arrays
+stay (n_chains, d); the driver transposes once per call.
 
-LAYOUT IS CHAIN-LAST: inside the kernel state is (d, chains) so the chain
-axis occupies VPU LANES (last-dim = 128-wide). The first, chain-major
-implementation wasted 98% of the VPU at d=2 and measured 5x SLOWER than
-scan+vmap; chain-last is the difference between a fused kernel and a fast
-fused kernel. Consequently ``potential_fn`` here takes a FEATURES-FIRST
-batch: (d, block) -> (block,). Public arrays stay (n_chains, d); the kernel
-transposes once per launch.
-
-The potential's closed-over constants are hoisted from its jaxpr into
-explicit kernel operands (Pallas requirement); scalars ride SMEM.
+Chains are grouped in blocks of ``block_chains``. A block is the unit of
+the RNG stream (seed + block * 7919) and the walker ensemble of the
+ensemble sampler; blocks are vmapped, so the block size changes which
+random numbers a chain sees, not how the work is scheduled.
 
 Distributional equivalence with the scan+vmap path is tested in
 tests/test_pallas_ops.py; the PRNG streams differ by construction.
@@ -30,8 +25,8 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+
+from ip_mcmc_tpu.precision import mm
 
 _TWO_PI = 2.0 * math.pi
 
@@ -75,8 +70,8 @@ def _mix_key(seed, step, tag):
 
 
 def _uniform01(key, shape):
-    """U(0,1), 24-bit mantissa (never exactly 0). uint32→int32 hop because
-    Mosaic lacks a direct uint32→f32 cast; values fit in 24 bits."""
+    """U(0,1), 24-bit mantissa (never exactly 0). The 24-bit value goes
+    through int32 (exact, and the stream every test pins)."""
     bits = _hash_bits(key, shape)
     return (bits >> 8).astype(jnp.int32).astype(jnp.float32) * (
         1.0 / (1 << 24)
@@ -96,117 +91,64 @@ def _normal(key1, key2, shape):
     return z[:d]
 
 
-def _trace_potential(step_builder, potential_fn, examples):
-    """Trace the potential (or, for gradient-based kernels, its
-    value-and-grad via ``jax.vjp``) to a jaxpr OUTSIDE the Pallas kernel, so
-    every closed-over constant — including those hidden in a ``custom_vjp``
-    backward (the Darcy adjoint's basis/observation matrices) — is hoisted
-    into explicit kernel operands (Pallas forbids captured constants).
-    ``examples`` is the tuple of potential inputs (position[, carried aux])."""
-    if getattr(step_builder, "needs_grad", False):
-        def traced(x):
-            phi, vjp = jax.vjp(potential_fn, x)
-            (g,) = vjp(jnp.ones_like(phi))
-            return phi, g
+def _with_grad(potential_fn):
+    """Value-and-gradient of a batched potential via ``jax.vjp`` (the
+    potential sums over chains, so a ones cotangent gives per-chain
+    gradients)."""
 
-        return jax.make_jaxpr(traced)(*examples)
-    return jax.make_jaxpr(potential_fn)(*examples)
+    def pot_and_grad(x):
+        phi, vjp = jax.vjp(potential_fn, x)
+        (g,) = vjp(jnp.ones_like(phi))
+        return phi, g
+
+    return pot_and_grad
 
 
-def _trace_potentials(step_builder, potential_fn, examples):
-    """Trace one potential — or a tuple of potentials (delayed acceptance:
-    exact + surrogate) — returning (closed_jaxprs, per-potential const
-    counts)."""
-    fns = potential_fn if isinstance(potential_fn, tuple) else (potential_fn,)
-    closed = [_trace_potential(step_builder, f, examples) for f in fns]
-    return closed, [len(cp.consts) for cp in closed]
+def _run_chains(step_builder, potential_fn, positions, params, seed, n_steps,
+                block_chains, thin=None):
+    """Shared driver for every fused entry point.
 
+    ``step_builder(pot, *params) -> (init, step)`` with ``init(pos_t) ->
+    carry`` (carry[0] is the (d, block) position by convention) and
+    ``step(carry, rand_n, rand_u) -> (carry, accepted)`` — the generalized
+    carry lets kernels cache extra state (MALA's gradient, the warm-started
+    CG solution). ``potential_fn`` is one features-first potential or a
+    tuple of them (delayed acceptance); a builder flagged ``needs_grad``
+    receives value-and-gradient instead.
 
-def _bind_pots(closed_pots, const_counts, const_vals):
-    """Rebuild the potential callables inside the kernel from the flat list
-    of (reshaped) constant operands. Returns a single callable when one
-    potential was traced, else the tuple — matching what the step builder
-    expects."""
-    pots, off = [], 0
-    for cp, cnt in zip(closed_pots, const_counts):
-        cvals = tuple(const_vals[off : off + cnt])
-        off += cnt
+    The (n, d) chains are split into ``n_blocks`` blocks of
+    ``block_chains``, laid out chain-last as (n_blocks, d, block). Each
+    block draws from its own counter-hash stream (``seed + block * 7919``)
+    and is one walker ensemble for the ensemble samplers; blocks are
+    vmapped, so one XLA program advances every chain in lockstep.
 
-        def call(*xs, _jaxpr=cp.jaxpr, _c=cvals):
-            out = jax.core.eval_jaxpr(_jaxpr, list(_c), *xs)
-            return out[0] if len(out) == 1 else tuple(out)
-
-        pots.append(call)
-    return pots[0] if len(pots) == 1 else tuple(pots)
-
-
-def _pack2d(a):
-    a = jnp.asarray(a)
-    if a.ndim == 0:
-        return a.reshape(1, 1)
-    if a.ndim == 1:
-        return a.reshape(1, -1)
-    return a
-
-
-def _run_fused(step_builder, potential_fn, positions, params, seed, n_steps,
-               block_chains, aux_dim=None):
-    """Shared driver. ``step_builder(pot, *params) -> (init, step)`` with
-    ``init(pos_t) -> carry`` (carry[0] is the (d, block) position by
-    convention) and ``step(carry, rand_n, rand_u) -> (carry, accepted)`` —
-    the generalized carry lets kernels cache extra state (MALA's gradient,
-    the warm-started CG solution). ``aux_dim``: if set, the potential takes
-    a second (aux_dim, block) argument (the carried aux) and returns
-    ``(phi, new_aux)``."""
+    ``thin=None`` returns (final (n, d), accept_rate (n,)[, extra (n,)]),
+    with ``extra`` the builder's ``extra_out`` channel. With ``thin`` set,
+    the position is recorded every ``thin`` steps and the result is
+    (final, accept_rate, samples (n_steps // thin, n, d)).
+    """
     positions = jnp.asarray(positions, jnp.float32)
     n, d = positions.shape
     if n % block_chains:
         raise ValueError(
             f"n_chains {n} must be a multiple of block_chains {block_chains}"
         )
-    examples = (jax.ShapeDtypeStruct((d, block_chains), positions.dtype),)
-    if aux_dim is not None:
-        examples += (
-            jax.ShapeDtypeStruct((aux_dim, block_chains), positions.dtype),
-        )
-    # ``potential_fn`` may be a TUPLE of potentials (delayed acceptance:
-    # exact + surrogate) — each traced to its own jaxpr with its own hoisted
-    # constants; the step builder then receives the same tuple of callables
-    closed_pots, const_counts = _trace_potentials(
-        step_builder, potential_fn, examples
+    if thin is not None and n_steps % thin:
+        raise ValueError(f"n_steps {n_steps} must be a multiple of thin {thin}")
+    if getattr(step_builder, "needs_grad", False):
+        potential_fn = _with_grad(potential_fn)
+    step_init, step = step_builder(
+        potential_fn, *[jnp.asarray(p, jnp.float32) for p in params]
     )
-    pot_consts = [jnp.asarray(c) for cp in closed_pots for c in cp.consts]
-
-    extras = [jnp.asarray(p, jnp.float32) for p in params] + list(pot_consts)
-    packed = [_pack2d(e) for e in extras]
-    orig_shapes = [tuple(jnp.asarray(e).shape) for e in extras]
-    is_scalar = [len(s) == 0 for s in orig_shapes]
-    n_params = len(params)
-
     extra_out = getattr(step_builder, "extra_out", None)
+    n_blocks = n // block_chains
+    block_seeds = (
+        jnp.asarray(seed, jnp.int32)
+        + jnp.arange(n_blocks, dtype=jnp.int32) * 7919
+    ).astype(jnp.uint32)
+    blocks = positions.reshape(n_blocks, block_chains, d).transpose(0, 2, 1)
 
-    def kernel(seed_ref, pos_ref, *rest):
-        extra_refs = rest[: len(extras)]
-        if extra_out is None:
-            out_ref, acc_ref = rest[len(extras) :]
-            xout_ref = None
-        else:
-            out_ref, acc_ref, xout_ref = rest[len(extras) :]
-        vals = []
-        for er, s, sc in zip(extra_refs, orig_shapes, is_scalar):
-            if sc:
-                vals.append(er[0, 0])
-            elif tuple(er.shape) != s:
-                vals.append(er[:].reshape(s))
-            else:
-                vals.append(er[:])
-        param_vals = vals[:n_params]
-        pot = _bind_pots(closed_pots, const_counts, vals[n_params:])
-        step_init, step = step_builder(pot, *param_vals)
-
-        block_seed = (seed_ref[0] + pl.program_id(0) * 7919).astype(jnp.uint32)
-        pos0 = pos_ref[:].T  # chain-last layout: (d, block)
-
+    def run_block(block_seed, pos0):
         def body(i, state):
             carry, acc = state
             rand_u = lambda shape, tag: _uniform01(
@@ -220,65 +162,33 @@ def _run_fused(step_builder, potential_fn, positions, params, seed, n_steps,
             carry, accepted = step(carry, rand_n, rand_u)
             return carry, acc + accepted.astype(jnp.float32)
 
-        carry_f, acc = jax.lax.fori_loop(
-            0,
-            n_steps,
-            body,
-            (step_init(pos0), jnp.zeros((1, block_chains), jnp.float32)),
-        )
-        out_ref[:] = carry_f[0].T
-        acc_ref[:] = acc / n_steps
-        if extra_out is not None:
-            xout_ref[:] = extra_out(carry_f)
+        state = (step_init(pos0), jnp.zeros((1, block_chains), jnp.float32))
+        if thin is None:
+            carry, acc = jax.lax.fori_loop(0, n_steps, body, state)
+            extra = None if extra_out is None else extra_out(carry)
+            return carry[0], acc / n_steps, extra
 
-    grid = (n // block_chains,)
-    extra_specs = [
-        pl.BlockSpec(
-            p.shape,
-            (lambda i, _nd=p.ndim: (0,) * _nd),
-            memory_space=pltpu.SMEM if sc else pltpu.VMEM,
+        def record(state, r):
+            state = jax.lax.fori_loop(
+                0, thin, lambda j, s: body(r * thin + j, s), state
+            )
+            return state, state[0][0]
+
+        (carry, acc), samples = jax.lax.scan(
+            record, state, jnp.arange(n_steps // thin, dtype=jnp.int32)
         )
-        for p, sc in zip(packed, is_scalar)
-    ]
-    interpret = jax.default_backend() != "tpu"
-    row_spec = pl.BlockSpec(
-        (1, block_chains), lambda i: (0, i), memory_space=pltpu.VMEM
-    )
-    out_specs = (
-        pl.BlockSpec(
-            (block_chains, d), lambda i: (i, 0), memory_space=pltpu.VMEM
-        ),
-        row_spec,
-    )
-    out_shape = (
-        jax.ShapeDtypeStruct((n, d), positions.dtype),
-        jax.ShapeDtypeStruct((1, n), jnp.float32),
-    )
-    if extra_out is not None:
-        out_specs += (row_spec,)
-        out_shape += (jax.ShapeDtypeStruct((1, n), jnp.float32),)
-    outs = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # seed
-            pl.BlockSpec(
-                (block_chains, d), lambda i: (i, 0), memory_space=pltpu.VMEM
-            ),
-            *extra_specs,
-        ],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        # v5e has 128 MB VMEM/core; Mosaic's conservative 16 MB scoped
-        # default rejects big-grid kernels (n=32 DST factors + CG state)
-        compiler_params=None if interpret else pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(jnp.asarray([seed], jnp.int32), positions, *packed)
-    if extra_out is not None:
-        return outs[0], outs[1][0], outs[2][0]
-    return outs[0], outs[1][0]
+        return carry[0], acc / n_steps, samples
+
+    final, acc, third = jax.vmap(run_block)(block_seeds, blocks)
+    final = final.transpose(0, 2, 1).reshape(n, d)
+    acc = acc.reshape(n)
+    if thin is not None:
+        # (n_blocks, n_rec, d, block) -> (n_rec, n, d)
+        samples = third.transpose(1, 0, 3, 2).reshape(-1, n, d)
+        return final, acc, samples
+    if third is None:
+        return final, acc
+    return final, acc, third.reshape(n)
 
 
 def _rwm_step_builder(pot, step_size):
@@ -324,11 +234,11 @@ def _pcn_step_builder(pot, beta, mean, scale):
 
 def _make_da_pcn_step_builder(subchain_len):
     """Fused delayed-acceptance pCN (the kernels/da_pcn.py algorithm on the
-    Pallas path): ``subchain_len`` pCN steps against the SURROGATE potential
+    fused path): ``subchain_len`` pCN steps against the SURROGATE potential
     Φ* (e.g. a coarse-grid FV solve, ~16x cheaper), then ONE exact-potential
     correction — Christen–Fox (2005) surrogate-transition form. The cost
     structure is STATIC (k cheap + 1 expensive eval per outer step for every
-    chain), which is exactly what vectorizes on VPU lanes; the inner loop is
+    chain), which is exactly what vectorizes across chains; the inner loop is
     a compile-time unroll (k is small and static). ``pot`` is the
     (exact, surrogate) pair; the carry caches Φ AND Φ* at the current state
     so nothing is recomputed. extra_out reports the inner (surrogate-stage)
@@ -518,9 +428,9 @@ def _make_pcn_warm_step_builder(aux_dim):
 
 
 def _make_pcn_adapt_step_builder(target_accept, gain):
-    """pCN with IN-KERNEL β adaptation: Robbins–Monro on the block-pooled
+    """pCN with fused β adaptation: Robbins–Monro on the block-pooled
     acceptance probability (the cross-chain adaptation signal, pooled over
-    the VPU lanes — the fused analog of ``adapt.warmup_pcn``). log-β rides
+    the block's chains — the fused analog of ``adapt.warmup_pcn``). log-β rides
     the carry as a (1, block) row (broadcast value); γ_i = gain/(1+i)^0.6
     via a step counter also carried. Burn-in only — freeze the returned β
     for sampling (detailed balance)."""
@@ -548,7 +458,7 @@ def _make_pcn_adapt_step_builder(target_accept, gain):
             log_u = jnp.log(rand_u((1, pos.shape[1]), 2))[0]
             accept = log_u < log_ratio
             # Robbins–Monro on pooled acceptance; clamp β ∈ (1e-4, 1).
-            # (1+i)^0.6 via exp/log — Mosaic has no powf lowering
+            # (1+i)^0.6 via exp/log
             gamma = gain * jnp.exp(-0.6 * jnp.log(1.0 + i[0, 0]))
             pooled = jnp.mean(accept_prob)
             log_beta = jnp.clip(
@@ -570,11 +480,11 @@ def _make_pcn_adapt_step_builder(target_accept, gain):
 
 def _make_fes_step_builder(n_low_modes, stretch_a):
     """Fused functional ensemble sampler (see kernels/ensemble.py for the
-    algorithm): each BLOCK of chains is one walker ensemble living on the
-    VPU lanes. Red-black sub-steps alternate over lane parity; the affine
-    partner is selected by a DYNAMIC ODD lane rotation (``pltpu.roll`` —
-    Mosaic's in-register rotate; an odd shift guarantees the partner has the
-    opposite parity, i.e. is FIXED during the sub-step). Affine stretch on
+    algorithm): each BLOCK of chains is one walker ensemble. Red-black
+    sub-steps alternate over chain-index parity; the affine partner is
+    selected by a DYNAMIC ODD rotation of the block's chain axis
+    (``jnp.roll``, toward higher indices; an odd shift guarantees the partner
+    has the opposite parity, i.e. is FIXED during the sub-step). Affine stretch on
     the first ``n_low_modes`` whitened rows, pCN on the complement:
     3 potential evaluations per step."""
     M = n_low_modes
@@ -608,7 +518,7 @@ def _make_fes_step_builder(n_low_modes, stretch_a):
                 shift = (
                     jnp.floor(u_s * (block // 2)).astype(jnp.int32) * 2 + 1
                 )
-                partner = pltpu.roll(w, shift, 1)
+                partner = jnp.roll(w, shift, axis=1)
                 uz = rand_u((1, block), tag0 + 2)[0]
                 z = jnp.square((a - 1.0) * uz + 1.0) / a  # g(z) ∝ 1/√z
                 w_prop = jnp.where(
@@ -652,7 +562,7 @@ def _make_fes_step_builder(n_low_modes, stretch_a):
 
 def _pcn_dense_step_builder(pot, beta, mean, chol):
     """pCN with a DENSE Gaussian prior N(mean, L Lᵀ): the proposal noise is
-    ξ = L z — one (d, d)·(d, block) MXU matmul per step (the fused analog of
+    ξ = L z — one (d, d)·(d, block) matmul per step (the fused analog of
     ``distributions.Gaussian.sample_centered``)."""
     contraction = jnp.sqrt(1.0 - beta * beta)
 
@@ -662,9 +572,10 @@ def _pcn_dense_step_builder(pot, beta, mean, chol):
     def step(carry, rand_n, rand_u):
         pos, phi = carry
         m = mean[:, None]
-        xi = jnp.matmul(
-            chol, rand_n(pos.shape, 0), preferred_element_type=jnp.float32
-        )
+        # full precision: a TF32 product would perturb the prior
+        # covariance the proposal must preserve
+        xi = mm(chol, rand_n(pos.shape, 0),
+                preferred_element_type=jnp.float32)
         prop = m + contraction * (pos - m) + beta * xi
         phi_prop = pot(prop)
         log_u = jnp.log(rand_u((1, pos.shape[1]), 2))[0]
@@ -679,7 +590,7 @@ def _pcn_dense_step_builder(pot, beta, mean, chol):
 
 def _make_ess_step_builder(max_shrink):
     """Elliptical slice sampling, fused form: the bracket-shrink loop is a
-    FIXED-budget fori_loop with per-chain done masks (all lanes pay
+    FIXED-budget loop with per-chain done masks (all chains pay
     ``max_shrink`` batched potential evals; expected acceptance is within
     2-3, so 6-8 is a safe budget). Chains whose bracket hasn't accepted by
     the budget stay put — the θ→0 limit, which is always in the slice, so
@@ -703,10 +614,9 @@ def _make_ess_step_builder(max_shrink):
             done = jnp.zeros((block,), jnp.bool_)
             centered = pos - m
 
-            # UNROLLED shrink loop (trace-time Python): a lax.fori_loop here
-            # nests three deep once the potential has its own CG loop, which
-            # Mosaic fails to legalize ('scf.for'); max_shrink is small so
-            # unrolling is cheap and flattens the nesting back to two.
+            # UNROLLED shrink loop (trace-time Python): max_shrink is small,
+            # and unrolling keeps the potential's own CG loop from nesting
+            # inside a second loop.
             new_pos, new_phi = pos, phi
             for k in range(max_shrink):
                 prop = centered * jnp.cos(theta)[None, :] + nu * jnp.sin(
@@ -734,8 +644,7 @@ def _make_mala_warm_step_builder(aux_dim):
     solver aux (``pag(U, aux) -> (phi_misfit, grad_misfit, aux_out)`` — the
     Darcy warm forward+adjoint pair). The whitened prior is folded in here
     (misfit potentials carry no prior), so the target is the full posterior.
-    ``pm``/``ps`` arrive as kernel params (closures would be captured
-    constants, which Pallas rejects)."""
+    ``pm``/``ps`` are the whitened prior's mean and scale."""
 
     def builder(pag, step_size, pm, ps):
         eps = step_size
@@ -782,10 +691,9 @@ def _make_mala_warm_step_builder(aux_dim):
 
 
 def _mala_step_builder(pot_and_grad, step_size):
-    """MALA on exp(−Φ): the driver pre-traces value-and-grad of the batched
-    potential (``needs_grad`` flag → ``_trace_potential``), so ``pot_and_
-    grad(x) -> (Φ, ∇Φ)`` here replays a jaxpr whose constants are kernel
-    operands. Reverse-differentiable potentials only — analytic, linear
+    """MALA on exp(−Φ): the driver wraps the batched potential in
+    value-and-grad (``needs_grad`` flag → ``_with_grad``), so ``pot_and_
+    grad(x) -> (Φ, ∇Φ)``. Reverse-differentiable potentials only — analytic, linear
     misfits, or adjoint-equipped PDE misfits (``darcy.make_batched_misfit(
     differentiable=True)``); not the plain fori_loop CG/FV misfits."""
     eps = step_size
@@ -823,167 +731,6 @@ def _mala_step_builder(pot_and_grad, step_size):
 _mala_step_builder.needs_grad = True
 
 
-def _run_fused_recorded(
-    step_builder, potential_fn, positions, params, seed, n_steps, thin,
-    block_chains, aux_dim=None
-):
-    """Like ``_run_fused`` but DMA-records the chain state every ``thin``
-    steps from a VMEM scratch into an HBM sample buffer — the fused kernel
-    as a COMPLETE sampler (one launch → (n_rec, n, d) trajectory)."""
-    positions = jnp.asarray(positions, jnp.float32)
-    n, d = positions.shape
-    if n % block_chains:
-        raise ValueError(
-            f"n_chains {n} must be a multiple of block_chains {block_chains}"
-        )
-    if n_steps % thin:
-        raise ValueError(f"n_steps {n_steps} must be a multiple of thin {thin}")
-    n_rec = n_steps // thin
-    examples = (jax.ShapeDtypeStruct((d, block_chains), positions.dtype),)
-    if aux_dim is not None:
-        examples += (
-            jax.ShapeDtypeStruct((aux_dim, block_chains), positions.dtype),
-        )
-    closed_pots, const_counts = _trace_potentials(
-        step_builder, potential_fn, examples
-    )
-    pot_consts = [jnp.asarray(c) for cp in closed_pots for c in cp.consts]
-
-    extras = [jnp.asarray(p, jnp.float32) for p in params] + list(pot_consts)
-    packed = [_pack2d(e) for e in extras]
-    orig_shapes = [tuple(jnp.asarray(e).shape) for e in extras]
-    is_scalar = [len(s) == 0 for s in orig_shapes]
-    n_params = len(params)
-
-    def kernel(seed_ref, pos_ref, *rest):
-        extra_refs = rest[: len(extras)]
-        out_ref, acc_ref, samples_ref, scratch, sem = rest[len(extras) :]
-        vals = []
-        for er, s, sc in zip(extra_refs, orig_shapes, is_scalar):
-            if sc:
-                vals.append(er[0, 0])
-            elif tuple(er.shape) != s:
-                vals.append(er[:].reshape(s))
-            else:
-                vals.append(er[:])
-        pot = _bind_pots(closed_pots, const_counts, vals[n_params:])
-        step_init, step = step_builder(pot, *vals[:n_params])
-
-        pid = pl.program_id(0)
-        block_seed = (seed_ref[0] + pid * 7919).astype(jnp.uint32)
-        pos0 = pos_ref[:].T
-
-        def body(i, state):
-            carry, acc = state
-            rand_u = lambda shape, tag: _uniform01(
-                _mix_key(block_seed, i, tag), shape
-            )
-            rand_n = lambda shape, tag: _normal(
-                _mix_key(block_seed, i, tag),
-                _mix_key(block_seed, i, tag + 1),
-                shape,
-            )
-            carry, accepted = step(carry, rand_n, rand_u)
-
-            @pl.when((i + 1) % thin == 0)
-            def _():
-                # chain-last buffer (n_rec, d, n): the DMA'd slice's minor
-                # dim is the 128-aligned chain axis (Mosaic requirement),
-                # and the (d, block) state needs no transpose to record.
-                # The wait is DEFERRED: record r's DMA is awaited only just
-                # before record r+1 overwrites the scratch, so the copy
-                # overlaps the next ``thin`` chain steps instead of stalling
-                # the pipeline per record (round-5: the eager start+wait
-                # cost ~8 ms/record — 4x the DA outer step itself — and was
-                # the whole recorded-vs-headline throughput gap).
-                rec = (i + 1) // thin - 1
-
-                @pl.when(rec >= 1)
-                def _():
-                    pltpu.make_async_copy(
-                        scratch,
-                        samples_ref.at[
-                            rec - 1, :, pl.ds(pid * block_chains, block_chains)
-                        ],
-                        sem,
-                    ).wait()
-
-                scratch[:] = carry[0]
-                pltpu.make_async_copy(
-                    scratch,
-                    samples_ref.at[rec, :, pl.ds(pid * block_chains, block_chains)],
-                    sem,
-                ).start()
-
-            return carry, acc + accepted.astype(jnp.float32)
-
-        carry_f, acc = jax.lax.fori_loop(
-            0,
-            n_steps,
-            body,
-            (step_init(pos0), jnp.zeros((1, block_chains), jnp.float32)),
-        )
-        n_rec_static = n_steps // thin
-        if n_rec_static >= 1:  # await the final in-flight record
-            pltpu.make_async_copy(
-                scratch,
-                samples_ref.at[
-                    n_rec_static - 1, :, pl.ds(pid * block_chains, block_chains)
-                ],
-                sem,
-            ).wait()
-        out_ref[:] = carry_f[0].T
-        acc_ref[:] = acc / n_steps
-
-    grid = (n // block_chains,)
-    extra_specs = [
-        pl.BlockSpec(
-            p.shape,
-            (lambda i, _nd=p.ndim: (0,) * _nd),
-            memory_space=pltpu.SMEM if sc else pltpu.VMEM,
-        )
-        for p, sc in zip(packed, is_scalar)
-    ]
-    interpret = (
-        pltpu.InterpretParams() if jax.default_backend() != "tpu" else False
-    )
-    final, acc, samples = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (block_chains, d), lambda i: (i, 0), memory_space=pltpu.VMEM
-            ),
-            *extra_specs,
-        ],
-        out_specs=(
-            pl.BlockSpec(
-                (block_chains, d), lambda i: (i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, block_chains), lambda i: (0, i), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(memory_space=pl.ANY),  # samples stay in HBM
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((n, d), positions.dtype),
-            jax.ShapeDtypeStruct((1, n), jnp.float32),
-            jax.ShapeDtypeStruct((n_rec, d, n), positions.dtype),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((d, block_chains), jnp.float32),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-        # see _run_fused: lift Mosaic's conservative scoped-VMEM default
-        compiler_params=None if interpret else pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(jnp.asarray([seed], jnp.int32), positions, *packed)
-    return final, acc[0], jnp.swapaxes(samples, 1, 2)
-
-
 @functools.partial(
     jax.jit,
     static_argnames=("potential_fn", "n_steps", "target_accept", "gain",
@@ -1001,12 +748,12 @@ def fused_pcn_chain_adapt(
     gain=0.5,
     block_chains=256,
 ):
-    """Burn-in pCN with IN-KERNEL β adaptation (Robbins–Monro on the
+    """Burn-in pCN with fused β adaptation (Robbins–Monro on the
     block-pooled acceptance probability — the fused analog of
     ``adapt.warmup_pcn``). Returns (positions, accept_rate, beta) with
     ``beta`` per chain (constant within each block); freeze e.g.
     ``float(beta.mean())`` for the sampling launch."""
-    return _run_fused(
+    return _run_chains(
         _make_pcn_adapt_step_builder(target_accept, gain),
         potential_fn,
         positions,
@@ -1044,7 +791,7 @@ def fused_mala_chain_warm(
     (final_positions, acceptance_rate_per_chain)."""
     if aux_dim is None:
         raise ValueError("fused_mala_chain_warm requires aux_dim")
-    return _run_fused(
+    return _run_chains(
         _make_mala_warm_step_builder(aux_dim),
         potential_fn,
         positions,
@@ -1056,7 +803,6 @@ def fused_mala_chain_warm(
         seed,
         n_steps,
         block_chains,
-        aux_dim=aux_dim,
     )
 
 
@@ -1077,10 +823,10 @@ def fused_mala_chain_warm_recorded(
     aux_dim=None,
     block_chains=256,
 ):
-    """Warm-started fused MALA with in-kernel trajectory recording."""
+    """Warm-started fused MALA with trajectory recording."""
     if aux_dim is None:
         raise ValueError("fused_mala_chain_warm_recorded requires aux_dim")
-    return _run_fused_recorded(
+    return _run_chains(
         _make_mala_warm_step_builder(aux_dim),
         potential_fn,
         positions,
@@ -1091,9 +837,8 @@ def fused_mala_chain_warm_recorded(
         ],
         seed,
         n_steps,
-        thin,
         block_chains,
-        aux_dim=aux_dim,
+        thin=thin,
     )
 
 
@@ -1116,16 +861,16 @@ def fused_fes_chain(
 ):
     """Fused functional ensemble sampler: affine-invariant stretch moves on
     the first ``n_low_modes`` whitened coordinates (partner = dynamic odd
-    lane rotation within the block-ensemble) + pCN complement, entirely in
-    VMEM. Each block of ``block_chains`` lanes is one interacting walker
+    rotation within the block-ensemble) + pCN complement. Each block of
+    ``block_chains`` chains is one interacting walker
     ensemble. Returns (final_positions, pCN-move acceptance per chain,
     stretch-move acceptance per chain)."""
     if block_chains % 2:
         raise ValueError(
             f"block_chains {block_chains} must be even: the red-black scheme "
-            "relies on an odd lane-roll landing on the opposite parity"
+            "relies on an odd roll landing on the opposite parity"
         )
-    return _run_fused(
+    return _run_chains(
         _make_fes_step_builder(n_low_modes, stretch_a),
         potential_fn,
         positions,
@@ -1158,13 +903,13 @@ def fused_fes_chain_recorded(
     thin=1,
     block_chains=256,
 ):
-    """Fused FES with in-kernel trajectory recording."""
+    """Fused FES with trajectory recording."""
     if block_chains % 2:
         raise ValueError(
             f"block_chains {block_chains} must be even: the red-black scheme "
-            "relies on an odd lane-roll landing on the opposite parity"
+            "relies on an odd roll landing on the opposite parity"
         )
-    return _run_fused_recorded(
+    return _run_chains(
         _make_fes_step_builder(n_low_modes, stretch_a),
         potential_fn,
         positions,
@@ -1175,8 +920,8 @@ def fused_fes_chain_recorded(
         ],
         seed,
         n_steps,
-        thin,
         block_chains,
+        thin=thin,
     )
 
 
@@ -1193,10 +938,10 @@ def fused_pcn_chain_dense(
     n_steps=100,
     block_chains=256,
 ):
-    """pCN with a DENSE (correlated) Gaussian prior, fused in VMEM:
+    """pCN with a DENSE (correlated) Gaussian prior, fused:
     ``prior_chol`` is the lower Cholesky factor of the prior covariance.
     Returns (final_positions, acceptance_rate_per_chain)."""
-    return _run_fused(
+    return _run_chains(
         _pcn_dense_step_builder,
         potential_fn,
         positions,
@@ -1226,8 +971,8 @@ def fused_pcn_chain_dense_recorded(
     thin=1,
     block_chains=256,
 ):
-    """Dense-prior pCN with in-kernel trajectory recording."""
-    return _run_fused_recorded(
+    """Dense-prior pCN with trajectory recording."""
+    return _run_chains(
         _pcn_dense_step_builder,
         potential_fn,
         positions,
@@ -1238,8 +983,8 @@ def fused_pcn_chain_dense_recorded(
         ],
         seed,
         n_steps,
-        thin,
         block_chains,
+        thin=thin,
     )
 
 
@@ -1258,10 +1003,10 @@ def fused_ess_chain(
     block_chains=256,
 ):
     """``n_steps`` of elliptical slice sampling on exp(−Φ)dμ₀ (diagonal
-    Gaussian prior), fused in VMEM — tuning-free (no β/ε to adapt). Each
+    Gaussian prior), fused — tuning-free (no β/ε to adapt). Each
     step costs ``max_shrink`` batched potential evaluations (masked shrink
     loop). Returns (final_positions, within-budget-acceptance per chain)."""
-    return _run_fused(
+    return _run_chains(
         _make_ess_step_builder(max_shrink),
         potential_fn,
         positions,
@@ -1290,8 +1035,8 @@ def fused_ess_chain_recorded(
     max_shrink=8,
     block_chains=256,
 ):
-    """Elliptical slice sampling with in-kernel trajectory recording."""
-    return _run_fused_recorded(
+    """Elliptical slice sampling with trajectory recording."""
+    return _run_chains(
         _make_ess_step_builder(max_shrink),
         potential_fn,
         positions,
@@ -1301,8 +1046,8 @@ def fused_ess_chain_recorded(
         ],
         seed,
         n_steps,
-        thin,
         block_chains,
+        thin=thin,
     )
 
 
@@ -1328,7 +1073,7 @@ def fused_pcn_chain_warm(
     equal residual. Returns (final_positions, acceptance_rate_per_chain)."""
     if aux_dim is None:
         raise ValueError("fused_pcn_chain_warm requires aux_dim (solver rows)")
-    return _run_fused(
+    return _run_chains(
         _make_pcn_warm_step_builder(aux_dim),
         potential_fn,
         positions,
@@ -1340,7 +1085,6 @@ def fused_pcn_chain_warm(
         seed,
         n_steps,
         block_chains,
-        aux_dim=aux_dim,
     )
 
 
@@ -1360,10 +1104,10 @@ def fused_pcn_chain_warm_recorded(
     aux_dim=None,
     block_chains=256,
 ):
-    """Warm-started fused pCN with in-kernel trajectory recording."""
+    """Warm-started fused pCN with trajectory recording."""
     if aux_dim is None:
         raise ValueError("fused_pcn_chain_warm_recorded requires aux_dim")
-    return _run_fused_recorded(
+    return _run_chains(
         _make_pcn_warm_step_builder(aux_dim),
         potential_fn,
         positions,
@@ -1374,9 +1118,8 @@ def fused_pcn_chain_warm_recorded(
         ],
         seed,
         n_steps,
-        thin,
         block_chains,
-        aux_dim=aux_dim,
+        thin=thin,
     )
 
 
@@ -1395,9 +1138,9 @@ def fused_pcn_chain_recorded(
     thin=1,
     block_chains=256,
 ):
-    """pCN with in-kernel trajectory recording: one launch returns
+    """pCN with trajectory recording: one launch returns
     (final_positions, accept_rate, samples (n_steps//thin, n, d))."""
-    return _run_fused_recorded(
+    return _run_chains(
         _pcn_step_builder,
         potential_fn,
         positions,
@@ -1408,8 +1151,8 @@ def fused_pcn_chain_recorded(
         ],
         seed,
         n_steps,
-        thin,
         block_chains,
+        thin=thin,
     )
 
 
@@ -1419,10 +1162,10 @@ def fused_pcn_chain_recorded(
 def fused_rwm_chain(
     potential_fn, positions, step_size, seed, n_steps=100, block_chains=256
 ):
-    """``n_steps`` of random-walk Metropolis on exp(−potential), fused in
-    VMEM. ``potential_fn``: FEATURES-FIRST batch (d, block) -> (block,).
+    """``n_steps`` of random-walk Metropolis on exp(−potential), fused.
+    ``potential_fn``: FEATURES-FIRST batch (d, block) -> (block,).
     Returns (final_positions (n, d), acceptance_rate_per_chain (n,))."""
-    return _run_fused(
+    return _run_chains(
         _rwm_step_builder,
         potential_fn,
         positions,
@@ -1439,12 +1182,12 @@ def fused_rwm_chain(
 def fused_mala_chain(
     potential_fn, positions, step_size, seed, n_steps=100, block_chains=256
 ):
-    """``n_steps`` of MALA on exp(−potential), fused in VMEM with IN-KERNEL
-    gradients (``jax.vjp`` of the batched potential, lowered by Mosaic).
+    """``n_steps`` of MALA on exp(−potential), fused, with gradients from
+    ``jax.vjp`` of the batched potential.
     ``potential_fn`` must be reverse-differentiable: analytic / linear-misfit
     targets (not the fori_loop CG/FV misfits). Returns
     (final_positions (n, d), acceptance_rate_per_chain (n,))."""
-    return _run_fused(
+    return _run_chains(
         _mala_step_builder,
         potential_fn,
         positions,
@@ -1462,17 +1205,17 @@ def fused_mala_chain(
 def fused_mala_chain_recorded(
     potential_fn, positions, step_size, seed, n_steps=100, thin=1, block_chains=256
 ):
-    """MALA with in-kernel trajectory recording: one launch returns
+    """MALA with trajectory recording: one launch returns
     (final_positions, accept_rate, samples (n_steps//thin, n, d))."""
-    return _run_fused_recorded(
+    return _run_chains(
         _mala_step_builder,
         potential_fn,
         positions,
         [jnp.float32(step_size)],
         seed,
         n_steps,
-        thin,
         block_chains,
+        thin=thin,
     )
 
 
@@ -1483,16 +1226,16 @@ def fused_mala_chain_recorded(
 def fused_rwm_chain_recorded(
     potential_fn, positions, step_size, seed, n_steps=100, thin=1, block_chains=256
 ):
-    """RWM with in-kernel trajectory recording (see fused_pcn_chain_recorded)."""
-    return _run_fused_recorded(
+    """RWM with trajectory recording (see fused_pcn_chain_recorded)."""
+    return _run_chains(
         _rwm_step_builder,
         potential_fn,
         positions,
         [jnp.float32(step_size)],
         seed,
         n_steps,
-        thin,
         block_chains,
+        thin=thin,
     )
 
 
@@ -1510,9 +1253,9 @@ def fused_pcn_chain(
     block_chains=256,
 ):
     """``n_steps`` of pCN with a diagonal (KL-coordinate) Gaussian prior,
-    fused in VMEM. ``potential_fn``: (d, block) -> (block,).
+    fused. ``potential_fn``: (d, block) -> (block,).
     Returns (final_positions, acceptance_rate_per_chain)."""
-    return _run_fused(
+    return _run_chains(
         _pcn_step_builder,
         potential_fn,
         positions,
@@ -1546,12 +1289,12 @@ def fused_da_pcn_chain(
 ):
     """Delayed-acceptance pCN, fully fused: each outer step runs
     ``subchain_len`` pCN steps against the cheap ``surrogate_fn`` (e.g. a
-    coarse-grid FV misfit) entirely in VMEM, then one ``potential_fn``
+    coarse-grid FV misfit), then one ``potential_fn``
     (exact) correction. Both potentials: (d, block) -> (block,).
     Returns (final_positions, exact_accept_rate, inner_accept_rate) —
     the exact rate measures surrogate quality (≈1 is ideal), the inner
     rate is what β tunes."""
-    return _run_fused(
+    return _run_chains(
         _make_da_pcn_step_builder(subchain_len),
         (potential_fn, surrogate_fn),
         positions,
@@ -1591,7 +1334,7 @@ def fused_da3_pcn_chain(
     (exact) correction. All three potentials: (d, block) -> (block,).
     Returns (final_positions, fine_accept_rate, mid_accept_rate). See
     ``_make_da3_pcn_step_builder`` for the measured rationale."""
-    return _run_fused(
+    return _run_chains(
         _make_da3_pcn_step_builder(k_inner, k_mid),
         (potential_fn, mid_fn, surrogate_fn),
         positions,
@@ -1626,10 +1369,10 @@ def fused_da3_pcn_chain_recorded(
     k_mid=4,
     block_chains=256,
 ):
-    """3-level DA pCN with in-kernel trajectory recording; each recorded
+    """3-level DA pCN with trajectory recording; each recorded
     step is one OUTER step (= k_inner*k_mid surrogate proposals + k_mid
     middle + 1 fine correction)."""
-    return _run_fused_recorded(
+    return _run_chains(
         _make_da3_pcn_step_builder(k_inner, k_mid),
         (potential_fn, mid_fn, surrogate_fn),
         positions,
@@ -1640,8 +1383,8 @@ def fused_da3_pcn_chain_recorded(
         ],
         seed,
         n_steps,
-        thin,
         block_chains,
+        thin=thin,
     )
 
 
@@ -1663,11 +1406,11 @@ def fused_da_pcn_chain_recorded(
     subchain_len=4,
     block_chains=256,
 ):
-    """Delayed-acceptance pCN with in-kernel trajectory recording: one
+    """Delayed-acceptance pCN with trajectory recording: one
     launch returns (final_positions, exact_accept_rate,
     samples (n_steps//thin, n, d)). Each recorded step is one OUTER DA
     step (= subchain_len surrogate proposals + 1 exact correction)."""
-    return _run_fused_recorded(
+    return _run_chains(
         _make_da_pcn_step_builder(subchain_len),
         (potential_fn, surrogate_fn),
         positions,
@@ -1678,6 +1421,6 @@ def fused_da_pcn_chain_recorded(
         ],
         seed,
         n_steps,
-        thin,
         block_chains,
+        thin=thin,
     )

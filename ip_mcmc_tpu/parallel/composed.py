@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
+from ip_mcmc_tpu import precision
 from ip_mcmc_tpu.parallel import grid_shard
 from ip_mcmc_tpu.parallel.mesh import CHAIN_AXIS
 
@@ -101,7 +102,7 @@ def sample_composed_pcn(
         gidx = cidx * c_loc + jnp.arange(c_loc)  # global chain ids
 
         def misfit(ub):  # (c_loc, K) -> (c_loc,)
-            log_a = jnp.einsum("ck,krn->crn", ub, basis_loc) + log_a_mean
+            log_a = precision.einsum("ck,krn->crn", ub, basis_loc) + log_a_mean
             a = jnp.exp(log_a)
             # c_loc simultaneous distributed solves: vmap batches the
             # ppermute halo exchange and psum reductions over 'model'
@@ -109,7 +110,7 @@ def sample_composed_pcn(
                 lambda al: grid_shard.solve_cg_local(al, f_loc, n, cg_iters)
             )(a)
             pred = jax.lax.psum(
-                jnp.einsum("mrn,crn->cm", obs_loc, sol), MODEL_AXIS
+                precision.einsum("mrn,crn->cm", obs_loc, sol), MODEL_AXIS
             )
             r = (y[None, :] - pred) / scale
             return 0.5 * jnp.sum(r * r, axis=1)
@@ -221,16 +222,16 @@ def _local_value_and_grad(ub, basis_loc, f_loc, obs_loc, y, scale, n,
     derivative — the adjoint method of models.darcy's custom_vjp, running on
     the row-sharded grid. Collectives (ppermute halos, psum dots) are
     vmapped over the local chain block."""
-    log_a = jnp.einsum("ck,krn->crn", ub, basis_loc) + log_a_mean
+    log_a = precision.einsum("ck,krn->crn", ub, basis_loc) + log_a_mean
     a = jnp.exp(log_a)
     sol = jax.vmap(
         lambda al: grid_shard.solve_cg_local(al, f_loc, n, cg_iters)
     )(a)
-    pred = jax.lax.psum(jnp.einsum("mrn,crn->cm", obs_loc, sol), MODEL_AXIS)
+    pred = jax.lax.psum(precision.einsum("mrn,crn->cm", obs_loc, sol), MODEL_AXIS)
     r = (y[None, :] - pred) / scale
     phi = 0.5 * jnp.sum(r * r, axis=1)
     # adjoint rhs: ∂Φ/∂x = −Oᵀ(r/σ); Oᵀ maps obs → grid rows, shard-local
-    rhs = -jnp.einsum("mrn,cm->crn", obs_loc, r / scale)
+    rhs = -precision.einsum("mrn,cm->crn", obs_loc, r / scale)
     lam = jax.vmap(
         lambda al, rl: grid_shard.solve_cg_local(al, rl, n, cg_iters)
     )(a, rhs)
@@ -239,7 +240,7 @@ def _local_value_and_grad(ub, basis_loc, f_loc, obs_loc, y, scale, n,
     )(a, sol, lam)
     g_loga = a * (-g_a)  # chain rule a = exp(log a); sign: δΦ = −λᵀ δA x
     g_u = jax.lax.psum(
-        jnp.einsum("krn,crn->ck", basis_loc, g_loga), MODEL_AXIS
+        precision.einsum("krn,crn->ck", basis_loc, g_loga), MODEL_AXIS
     )
     return phi, g_u
 
@@ -343,13 +344,13 @@ def sample_composed_elliptical(
         gidx = cidx * c_loc + jnp.arange(c_loc)
 
         def misfit(ub):  # (c_loc, K) -> (c_loc,)
-            log_a = jnp.einsum("ck,krn->crn", ub, basis_loc) + log_a_mean
+            log_a = precision.einsum("ck,krn->crn", ub, basis_loc) + log_a_mean
             a = jnp.exp(log_a)
             sol = jax.vmap(
                 lambda al: grid_shard.solve_cg_local(al, f_loc, n, cg_iters)
             )(a)
             pred = jax.lax.psum(
-                jnp.einsum("mrn,crn->cm", obs_loc, sol), MODEL_AXIS
+                precision.einsum("mrn,crn->cm", obs_loc, sol), MODEL_AXIS
             )
             r = (y[None, :] - pred) / scale
             return 0.5 * jnp.sum(r * r, axis=1)

@@ -1,13 +1,15 @@
-"""Multi-chip fused kernels: shard_map the Pallas chain kernels over the
+"""Multi-device fused chains: shard_map the fused chain engine over the
 'chains' mesh axis.
 
-The fused kernels (ops.fused_mcmc) are per-chip programs — a grid of
-VMEM-resident chain blocks on ONE device. This wrapper row-shards the
-(n_chains, d) state over the chain mesh and launches the SAME fused kernel
-on every device's shard inside one ``shard_map``-ed XLA program: zero
+The fused entry points (ops.fused_mcmc) are per-device programs — all of a
+device's chain blocks advanced in lockstep. This wrapper row-shards the
+(n_chains, d) state over the chain mesh and runs the SAME fused program on
+every device's shard inside one ``shard_map``-ed XLA program: zero
 cross-device communication during sampling (chains are independent), so
 scaling is embarrassingly parallel; per-device PRNG streams are decorrelated
-by folding ``axis_index`` into the seed.
+by folding ``axis_index`` into the seed. On four cards of one host the mesh
+is a flat chain pool: every card reaches every other over NVLink at the
+same rate, so the mesh follows the algorithm, not the wiring.
 
 Serial-oracle equivalence (device d's shard ≡ a single-device run of that
 shard with seed + d·SEED_STRIDE) is tested in tests/test_sharding.py.
@@ -65,10 +67,10 @@ def sharded_fused_chain(fused_fn, mesh, potential_fn, positions, *, seed,
 
 def sharded_fused_chain_composed(fused_fn, mesh, potential_fn, positions,
                                  *, seed, **kwargs):
-    """Fused per-device launches under a composed ``('chains','model')``
-    mesh (ROADMAP P2): when the problem fits one device's VMEM, the 2-D
-    mesh is a flat chain pool — the chain axis shards over BOTH mesh axes
-    and every device launches the same fused Pallas kernel on its shard.
+    """Fused per-device runs under a composed ``('chains','model')`` mesh
+    (ROADMAP P2): when each chain's solve fits one device, the 2-D mesh is
+    a flat chain pool — the chain axis shards over BOTH mesh axes and every
+    device runs the same fused program on its shard.
 
     Why: a long-lived service holds ONE mesh. Large grid-sharded solves
     (parallel.composed) need the 'model' axis; small/fused configs would

@@ -3,11 +3,12 @@
 The reference is single-process/single-chain; the rebuild's parallelism axis
 is CHAINS (data parallel ≡ chain/particle parallel, SURVEY.md §2.3): chain
 state pytrees carry a leading ``(n_chains, ...)`` axis, sharded over the
-1-D device mesh ``('chains',)`` spanning ICI within a slice and DCN across
-slices. A second ``'model'`` axis is reserved by design for sharded-grid
-forward solves (SURVEY.md §5.7) but unused at current problem sizes.
+1-D device mesh ``('chains',)``. The four cards of one host are joined all
+to all by NVLink, so no device order is closer than another and the mesh
+follows the algorithm alone. A second ``'model'`` axis is for sharded-grid
+forward solves (SURVEY.md §5.7; ``parallel.composed``).
 
-Transport is XLA collectives — the TPU-native NCCL/MPI equivalent; this
+Transport is XLA collectives, which XLA hands to NCCL on GPUs; this
 module's job is only mesh construction + sharding annotation. Computation
 stays in the global view: ``driver.sample_chains`` jitted with sharded
 inputs lets XLA partition the vmapped kernel across devices (zero
@@ -16,7 +17,7 @@ reductions (adaptation, diagnostics, SMC) are plain jnp reductions that XLA
 lowers to psum/all-gather over the mesh.
 
 Multi-host bootstrap: ``distributed_init`` wraps ``jax.distributed
-.initialize`` (one process per host on a pod slice).
+.initialize`` (one process per host).
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Parity with the reference's ``AnalyticPotential`` / ``EvolutionPotential``
 (SURVEY.md §2.1, expected ``ip_mcmc/potential.py`` [H names, M path]; mount
-empty), redesigned TPU-first: a potential here is a *pure jittable function*
+empty), redesigned for batched accelerator execution: a potential here is a *pure jittable function*
 ``u -> Φ(u)`` built by a factory, so it can be closed over by compiled
 kernels, ``vmap``-ed over thousands of chains, and differentiated (for
 MALA/HMC/NUTS) when the forward model is smooth.

@@ -323,7 +323,7 @@ def run_batched(
 
     ``batched_potential_fn``: Φ over a chain-last batch, (d, n) -> (n,)
     (e.g. ``darcy.make_batched_misfit``) — one XLA program evaluates ALL
-    particles' PDE solves as batched matmul/stencil ops on the MXU/VPU.
+    particles' PDE solves as batched matmul/stencil ops on the device.
 
     ``warm_potential_fn``: optional ``phi2(U, X0) -> (phi, X)`` (e.g.
     ``darcy.make_batched_misfit_warm``): each particle CARRIES its converged

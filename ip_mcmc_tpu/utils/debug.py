@@ -1,4 +1,4 @@
-"""Debug / sanitizer mode (SURVEY.md §5.2): the TPU-native analog of race
+"""Debug / sanitizer mode (SURVEY.md §5.2): the accelerator analog of race
 detectors & sanitizers for a pure-functional engine.
 
 - ``debug_mode()``: context manager enabling ``jax_debug_nans`` (fail fast at

@@ -7,9 +7,9 @@ Accepter / Potential / Distribution objects, pure NumPy, single process,
 single chain, sequential steps.
 
 It serves two purposes (SURVEY.md §7.2 step 1):
-1. correctness oracle for the TPU engine (distributional agreement tests);
+1. correctness oracle for the JAX engine (distributional agreement tests);
 2. the "reference side" of every benchmark (ESS/sec of the NumPy loop is the
-   baseline the TPU engine must beat ≥10×, per BASELINE.json).
+   baseline the JAX engine must beat ≥10×, per BASELINE.json).
 
 Deliberately written in the reference's idiom: Python ``for`` loop over
 steps, per-step object dispatch, dense NumPy linalg. Do not optimize.

@@ -122,6 +122,24 @@ def test_matches_single_device_product_path():
     assert np.std(s[-1] - s[0]) > 1e-3
 
 
+@pytest.mark.parametrize("mesh_shape", [(1, 1), (2, 4)])
+def test_composed_config_misfit_matches_single_device(mesh_shape):
+    """At the darcy_composed_* configs' σ = 0.002, the composed misfit
+    equals the single-device batched misfit of darcy_da_fused on the same
+    data to 1e-4 relative (chip_smoke's bound on the card)."""
+    from ip_mcmc_tpu import configs
+
+    kp = configs.build("darcy_composed_pcn").kernel_params
+    single = configs.build("darcy_da_fused")
+    u = jax.random.normal(jax.random.key(11), (64, 64))
+    phi_c, _ = composed.composed_misfit_and_grad(
+        kp["aux"], single.data, kp["noise_scale"],
+        composed.make_composed_mesh(*mesh_shape), u, cg_iters=kp["cg_iters"])
+    phi_1 = single.batched_potential_fn(u.T)
+    np.testing.assert_allclose(np.asarray(phi_c), np.asarray(phi_1),
+                               rtol=1e-4)
+
+
 def _plain_misfit(aux, y, noise):
     """Single-device reference misfit built on the dense-graph solve path."""
     n = int(aux["n_grid"])

@@ -291,7 +291,7 @@ class TestDarcyDAFused:
     def test_darcy_da_fused_config_runs(self):
         """Round-4 headline config (fused DA, 8x8 calibrated surrogate)
         through the runner at smoke sizes (subchain shortened: the fused
-        kernel unrolls it, and CPU interpret mode pays per-op)."""
+        engine unrolls it, and the CPU pays per op)."""
         from ip_mcmc_tpu import configs, runner
 
         p = configs.build("darcy_da_fused")
@@ -319,7 +319,7 @@ class TestDarcyDAFused:
 
     def test_darcy64_da_fused_config_runs(self):
         """Large-grid round-4 DA config through the runner at smoke sizes
-        (short subchain + small block for CPU interpret mode)."""
+        (short subchain + small block for the CPU)."""
         from ip_mcmc_tpu import configs, runner
 
         p = configs.build("darcy64_da_fused")

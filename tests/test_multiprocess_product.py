@@ -326,7 +326,7 @@ _DRILL_WORKER = (
 @pytest.mark.slow
 def test_kill_one_process_midrun_then_restore_bitwise(tmp_path):
     """SURVEY.md §5.3 drill: SIGKILL process 1 mid-run (process 0 torn down
-    with it — TPU slices are gang-scheduled), restart both from the Orbax
+    with it — multi-host jobs are gang-scheduled), restart both from the Orbax
     checkpoint, and the assembled samples are bitwise identical to an
     uninterrupted single-process run."""
     script = tmp_path / "worker.py"

@@ -1,4 +1,4 @@
-"""Cross-validation: TPU engine vs the NumPy oracle (reference-equivalent
+"""Cross-validation: the engine vs the NumPy oracle (reference-equivalent
 implementation). Seeds can't transfer across RNGs, so we match
 *distributions* — posterior moments within Monte-Carlo error (SURVEY.md §4.2
 item 3; BASELINE.json correctness gate)."""
@@ -46,7 +46,7 @@ def test_rwm_matches_oracle_2d_gaussian():
     _, samples, _ = driver.sample_chains(
         kernel, state, key_r, n_samples=500, burn_in=300
     )
-    tpu_flat = np.asarray(samples).reshape(-1, 2)
+    dev_flat = np.asarray(samples).reshape(-1, 2)
 
     # exact product posterior: N(MEAN, COV) × N(0, 100 I)
     prec = np.linalg.inv(COV) + np.eye(2) / 100.0
@@ -54,13 +54,13 @@ def test_rwm_matches_oracle_2d_gaussian():
     exact_mean = exact_cov @ np.linalg.solve(COV, MEAN)
 
     # each side within its own Monte-Carlo error of the true posterior
-    np.testing.assert_allclose(tpu_flat.mean(axis=0), exact_mean, atol=0.08)
+    np.testing.assert_allclose(dev_flat.mean(axis=0), exact_mean, atol=0.08)
     np.testing.assert_allclose(oracle_samples.mean(axis=0), exact_mean, atol=0.3)
-    np.testing.assert_allclose(np.cov(tpu_flat.T), exact_cov, atol=0.2)
+    np.testing.assert_allclose(np.cov(dev_flat.T), exact_cov, atol=0.2)
     np.testing.assert_allclose(np.cov(oracle_samples.T), exact_cov, atol=0.5)
     # and against each other, at combined-MC-error tolerance
     np.testing.assert_allclose(
-        tpu_flat.mean(axis=0), oracle_samples.mean(axis=0), atol=0.4
+        dev_flat.mean(axis=0), oracle_samples.mean(axis=0), atol=0.4
     )
     assert 0.05 < accepter.acceptance_rate < 0.9
 
@@ -85,10 +85,10 @@ def test_pcn_matches_oracle_gaussian_ip():
     _, samples, _ = driver.sample_chains(
         kernel, state, key_r, n_samples=800, burn_in=300
     )
-    tpu_flat = np.asarray(samples).reshape(-1, 2)
+    dev_flat = np.asarray(samples).reshape(-1, 2)
 
     exact_mean, exact_cov = y / 2, 0.5 * np.eye(2)
-    np.testing.assert_allclose(tpu_flat.mean(axis=0), exact_mean, atol=0.06)
+    np.testing.assert_allclose(dev_flat.mean(axis=0), exact_mean, atol=0.06)
     np.testing.assert_allclose(oracle_samples.mean(axis=0), exact_mean, atol=0.1)
-    np.testing.assert_allclose(np.cov(tpu_flat.T), exact_cov, atol=0.1)
+    np.testing.assert_allclose(np.cov(dev_flat.T), exact_cov, atol=0.1)
     np.testing.assert_allclose(np.cov(oracle_samples.T), exact_cov, atol=0.15)

@@ -1,6 +1,5 @@
-"""Fused Pallas MCMC kernels: distributional equivalence with the scan path
-(streams differ; posteriors must match) — interpret mode on CPU, compiled on
-TPU."""
+"""Fused chain engine: distributional equivalence with the scan path
+(streams differ; posteriors must match). Plain XLA on every backend."""
 
 import jax
 import jax.numpy as jnp
@@ -100,7 +99,7 @@ def test_fused_pcn_with_burgers_forward():
     )
     ref_mean = np.asarray(samples).reshape(-1, K).mean(axis=0)
 
-    # fused pallas path
+    # fused chain engine
     phi_batch = burgers.make_batched_misfit(aux, y, noise_scale)
     pos = prior.sample(jax.random.key(2), (128,))
     pos, _ = fused_pcn_chain(
@@ -159,8 +158,8 @@ def test_fused_pcn_with_darcy_forward():
 
 
 def test_recorded_chain_matches_unrecorded_and_distribution():
-    """In-kernel DMA recording: last record == final positions; recorded
-    trajectory has the right posterior."""
+    """Recording: last record == final positions; recorded trajectory has
+    the right posterior."""
     from ip_mcmc_tpu.ops import fused_pcn_chain_recorded
 
     n, d = 512, 2
@@ -185,8 +184,8 @@ def test_recorded_chain_matches_unrecorded_and_distribution():
 def test_recorded_equals_unrecorded_bitwise():
     """Recording is PASSIVE: the recorded program's chain is bitwise the
     unrecorded program's chain at the same seed (the RNG stream is a pure
-    function of (seed, step, tag); the deferred-wait DMA added in round 5
-    must never perturb the state it snapshots)."""
+    function of (seed, step, tag); recording must never perturb the state
+    it snapshots)."""
     from ip_mcmc_tpu.ops import fused_pcn_chain, fused_pcn_chain_recorded
 
     n, d = 256, 2
@@ -223,7 +222,7 @@ def test_block_mismatch_raises():
 
 
 def test_fused_mala_targets_gaussian():
-    """Fused MALA (in-kernel jax.vjp gradients) samples the right target."""
+    """Fused MALA (jax.vjp gradients) samples the right target."""
     from ip_mcmc_tpu.ops import fused_mala_chain
 
     n, d = 512, 2
@@ -244,7 +243,7 @@ def test_fused_mala_targets_gaussian():
 
 def test_fused_mala_linear_misfit_conjugate():
     """MALA through a linear forward misfit: gradient = matmul transpose;
-    the MXU path of the in-kernel vjp. Conjugate posterior as oracle."""
+    the matmul path of the vjp. Conjugate posterior as oracle."""
     from ip_mcmc_tpu.ops import fused_mala_chain
 
     d, m, n = 4, 3, 512
@@ -300,8 +299,7 @@ def test_fused_rwm_recorded_matches_endpoint():
 
 def test_fused_mala_darcy_adjoint_smoke():
     """Gradient-based MCMC on Darcy entirely inside the fused kernel: the
-    in-kernel vjp replays the adjoint CG solve (custom_vjp consts hoisted
-    to kernel operands)."""
+    vjp runs the adjoint CG solve (custom_vjp)."""
     from ip_mcmc_tpu import distributions as dist
     from ip_mcmc_tpu.models import darcy
     from ip_mcmc_tpu.ops import fused_mala_chain
@@ -449,7 +447,7 @@ class TestFusedESS:
 
 
 def test_warm_dst_matches_jacobi_acceptance():
-    """DST-preconditioned warm CG (bf16 MXU Kronecker factors): same
+    """DST-preconditioned warm CG (bf16 Kronecker factors): same
     acceptance as the Jacobi warm path on identical streams — the
     preconditioner changes the solver path, not the solution."""
     from ip_mcmc_tpu import distributions as dist
@@ -585,7 +583,7 @@ def test_fused_pcn_dense_prior_invariance_and_posterior():
 
 
 class TestFusedFES:
-    """Fused functional ensemble sampler (dynamic lane-roll partners)."""
+    """Fused functional ensemble sampler (dynamic odd-roll partners)."""
 
     def _target(self):
         C = np.array([[1.0, 0.9], [0.9, 1.0]], np.float32)
@@ -762,7 +760,7 @@ class TestFusedMalaWarm:
 
 class TestFusedBetaAdaptation:
     def test_adapts_down_to_target_on_sharp_likelihood(self):
-        """In-kernel Robbins–Monro β adaptation: frozen β reproduces the
+        """Fused Robbins–Monro β adaptation: frozen β reproduces the
         target acceptance on a sharp 16-dim posterior."""
         from ip_mcmc_tpu.ops import fused_pcn_chain, fused_pcn_chain_adapt
 

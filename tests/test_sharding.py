@@ -131,7 +131,7 @@ def test_pcn_sharded_posterior():
 
 
 class TestShardedFusedChains:
-    """shard_map over the Pallas fused kernels (parallel.fused_shard)."""
+    """shard_map over the fused chain engine (parallel.fused_shard)."""
 
     def _phi(self):
         y = jnp.array([1.0, 1.0])
@@ -213,7 +213,7 @@ class TestShardedFusedChains:
 class TestComposedFused:
     """Fused per-device launches under the ('chains','model') composed mesh
     (parallel.sharded_fused_chain_composed): the 2-D mesh acts as a flat
-    chain pool when the problem fits one device's VMEM."""
+    chain pool when each chain's solve fits one device."""
 
     def _phi(self):
         y = jnp.array([1.0, 1.0])
